@@ -21,7 +21,8 @@ non-zero exit; nothing is caught):
 3. slice   — ``TTHFTrainer`` on the card, kernel on: 40 steps, with the
              launch counter reset just before; then the same run through
              the ``masked_loop`` backend (same loss history, same
-             ledger), the SVM, and Remark-1 adaptive Γ; and a small run
+             ledger), the SVM, and Remark-1 adaptive Γ (kernel and
+             ``masked_loop``, held against each other); and a small run
              on the card against the same run on the CPU.
 
 It prints the card's name and power limit first, one JSON line with the
@@ -122,11 +123,16 @@ def phase_kernels() -> dict:
         consensus_mix, consensus_mix_plain)
 
     worst = {}
-    cases = [(shape, dt) for shape in TEST_SHAPES
+    cases = [(shape, dt, None) for shape in TEST_SHAPES
              for dt in ("float32", "bfloat16")]
-    cases += [(shape, "float32") for shape in NN_LEAF_SHAPES]
-    for i, (shape, dt) in enumerate(cases):
-        z, V, gamma = mixing_inputs(shape, getattr(torch, dt), seed=i)
+    cases += [(shape, "float32", None) for shape in NN_LEAF_SHAPES]
+    # the Γ the Remark-1 rule gives the main path: up to its cap of 64
+    cases += [(shape, "float32", np.resize(np.array([0, 2, 64], np.int32),
+                                           shape[0]))
+              for shape in NN_LEAF_SHAPES]
+    for i, (shape, dt, g) in enumerate(cases):
+        z, V, gamma = mixing_inputs(shape, getattr(torch, dt), seed=i,
+                                    gamma=g)
         out = consensus_mix(z, V, gamma)
         torch.cuda.synchronize()
         plain = consensus_mix_plain(z, V, gamma)
@@ -136,7 +142,7 @@ def phase_kernels() -> dict:
         same = consensus_mix(z, V, torch.zeros_like(gamma))
         assert torch.equal(same, z), (shape, dt, "gamma=0 must copy z")
         worst[dt] = max(worst.get(dt, 0.0), err)
-        log(f"[kernels] {shape} {dt} gamma={gamma.tolist()} "
+        log(f"[kernels] {shape} {dt} gamma={sorted(set(gamma.tolist()))} "
             f"max_abs_err={err:.3e} (tol {TOL[dt]})")
 
     # the main path's largest leaf: f32, Γ = 2 in every cluster
@@ -169,8 +175,8 @@ def phase_kernels() -> dict:
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err_f32_all": max(worst["float32"], err),
-            "max_abs_err_bf16_all": worst["bfloat16"]}
+            "max_abs_err_all_shapes": {"float32": max(worst["float32"], err),
+                                       "bfloat16": worst["bfloat16"]}}
 
 
 class NumpyDraws:
@@ -231,7 +237,8 @@ def phase_slice(profile: bool = False) -> int:
     # warm-up (allocator, cuBLAS handles, the kernel's first load) so
     # that the timed runs below compare like with like
     for kw in (dict(use_kernel=True), dict(backend="masked_loop")):
-        run(nn, algo(), run_steps=5, **kw)
+        _, _, wall0 = run(nn, algo(), run_steps=5, **kw)
+        log(f"[slice] warm-up nn-7840 {kw}: 5 steps in {wall0:.3f} s")
 
     # the main path: NN at full width, consensus through the kernel
     torch.cuda.reset_peak_memory_stats()
@@ -281,6 +288,16 @@ def phase_slice(profile: bool = False) -> int:
     log(f"[slice] nn-7840 adaptive Γ kernel: {steps / wall4:.3f} steps/s, "
         f"loss {hist4.global_loss}, gamma_used "
         f"{[g.tolist() for g in hist4.gamma_used]}, ledger {ledger(tr4)}")
+    # the kernel at the Γ this rule gives it, against the plain rounds
+    tr5, hist5, wall5 = run(nn, algo(gamma_d2d=-1), backend="masked_loop")
+    np.testing.assert_allclose(hist5.global_loss, hist4.global_loss,
+                               rtol=1e-4)
+    assert ledger(tr5) == ledger(tr4)
+    assert [g.tolist() for g in hist5.gamma_used] == \
+        [g.tolist() for g in hist4.gamma_used]
+    log(f"[slice] nn-7840 adaptive Γ masked_loop: {steps / wall5:.3f} "
+        f"steps/s, loss {hist5.global_loss} (rtol 1e-4 vs the kernel run), "
+        f"same ledger and gamma_used")
 
     # the card against the CPU on a small input: same data, weights
     # and draws; the CPU run takes the plain versions of the kernels
@@ -356,11 +373,7 @@ def main() -> int:
         "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
         "library_ms": numbers["library_ms"],
-        # aliases of max_abs_err and ms, and the worst error over all
-        # the compared shapes
-        "max_err": numbers["max_abs_err"], "kernel_ms": numbers["ms"],
-        "max_abs_err_f32_all_shapes": numbers["max_abs_err_f32_all"],
-        "max_abs_err_bf16_all_shapes": numbers["max_abs_err_bf16_all"],
+        "max_abs_err_all_shapes": numbers["max_abs_err_all_shapes"],
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {

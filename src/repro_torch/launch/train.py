@@ -1,10 +1,12 @@
 """Training entry point of the port — ``--mode sim``, the paper's Algorithm 1
 on the federated image task, with the flags of ``repro/launch/train.py``
-plus ``--device`` and ``--use-kernel``.
+plus ``--device``. D2D mixing always goes through the ``consensus_mix``
+wrapper: on the CUDA device it launches the kernel, and on the CPU it
+runs the kernel's plain version.
 
 Examples:
   python -m repro_torch.launch.train --mode sim --model nn --hidden 7840 \
-      --steps 40 --use-kernel                     # on the CUDA device
+      --steps 40                                  # on the CUDA device
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 25 --clusters 5 --points 2500 --steps 20 --device cpu
 
@@ -57,7 +59,7 @@ def run_sim(args):
                           gamma_d2d=args.gamma, constant_lr=args.lr,
                           phi=args.phi)
     tr = TTHFTrainer(model, data, topo, algo, batch_size=args.batch,
-                     use_kernel=args.use_kernel, device=args.device)
+                     use_kernel=True, device=args.device)
     t0 = time.time()
     st, hist = tr.run(steps=args.steps, seed=args.seed,
                       eval_every=args.eval_every)
@@ -95,8 +97,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; the run "
                          "fails without one unless 'cpu' is given)")
-    ap.add_argument("--use-kernel", action="store_true",
-                    help="mix through the CUDA consensus_mix kernel")
     # sim
     ap.add_argument("--model", choices=["svm", "nn"], default="svm")
     ap.add_argument("--devices", type=int, default=125)

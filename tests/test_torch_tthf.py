@@ -192,7 +192,7 @@ def test_train_cli_summary_line(capsys):
     argv = ["--mode", "sim", "--model", "svm", "--devices", "10",
             "--clusters", "2", "--points", "800", "--steps", "10",
             "--tau", "5", "--consensus-every", "2", "--gamma", "2",
-            "--eval-every", "5", "--device", "cpu", "--use-kernel"]
+            "--eval-every", "5", "--device", "cpu"]
     assert train_cli.main(argv) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     m = re.fullmatch(r"steps=10 wall=\S+s final_loss=(\S+) final_acc=(\S+) "
