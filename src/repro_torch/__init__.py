@@ -9,6 +9,9 @@ never ``jax`` and nothing of ``repro``: the jax-free host modules
 Ported so far: the paper's Algorithm 1 in simulation mode on the static
 topology (``core.tthf.TTHFTrainer``, ``launch.train --mode sim``), with
 D2D mixing carried by the hand-written CUDA kernel
-``kernels.consensus_mix``. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+``kernels.consensus_mix``; and TT-HF as the scale-mode sync strategy for
+the dense model family (``train.ScaleTrainer``, ``launch.train --mode
+scale``), whose fused interval ends every consensus block in the CUDA
+kernel ``kernels.fused_consensus_sgd``. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """

@@ -1,19 +1,26 @@
-"""Training entry point of the port — ``--mode sim``, the paper's Algorithm 1
-on the federated image task, with the flags of ``repro/launch/train.py``
-plus ``--device``. D2D mixing always goes through the ``consensus_mix``
-wrapper: on the CUDA device it launches the kernel, and on the CPU it
-runs the kernel's plain version.
+"""Training entry point of the port, with the flags of
+``repro/launch/train.py`` plus ``--device``. Two modes:
+
+* ``--mode sim``   — the paper's Algorithm 1 on the federated image task.
+                     D2D mixing always goes through the ``consensus_mix``
+                     wrapper: on the CUDA device it launches the kernel,
+                     and on the CPU it runs the kernel's plain version.
+* ``--mode scale`` — TT-HF as the sync strategy for a dense model-zoo
+                     arch (``--arch``) through ``ScaleTrainer``, on one
+                     device, with the reference's per-leaf interval step.
 
 Examples:
   python -m repro_torch.launch.train --mode sim --model nn --hidden 7840 \
       --steps 40                                  # on the CUDA device
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 25 --clusters 5 --points 2500 --steps 20 --device cpu
+  python -m repro_torch.launch.train --mode scale --arch qwen1.5-0.5b \
+      --steps 2                                   # full size, on the card
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--mode scale`` (Queue 1 item 6); ``--scenario``, ``--hierarchy`` and
-``--control`` other than static (item 4); ``--trace-dir`` and
-``--profile`` (item 5).
+``--arch`` of a kind other than dense (Queue 1 item 6); ``--scenario``,
+``--hierarchy`` and ``--control`` other than static (item 4);
+``--trace-dir`` and ``--profile`` (item 5).
 """
 from __future__ import annotations
 
@@ -78,6 +85,43 @@ def run_sim(args):
     return 0
 
 
+def run_scale(args):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import TTHFScaleConfig
+    from repro_torch.train import ScaleTrainer, TrainerConfig
+
+    _refuse_unported(args)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    # consensus_every must divide tau (static event calendar): snap to
+    # the nearest divisor <= requested
+    ce = max(1, min(args.consensus_every, args.tau))
+    while args.tau % ce:
+        ce -= 1
+    scale = TTHFScaleConfig(replicas=args.replicas,
+                            cluster_size=args.cluster_size, tau=args.tau,
+                            consensus_every=ce, gamma_d2d=args.gamma,
+                            lr=args.lr, consensus_mode=args.consensus_mode)
+    tr = ScaleTrainer(
+        cfg, scale,
+        TrainerConfig(batch_per_replica=args.batch, seq_len=args.seq,
+                      intervals=args.steps, eval_every=0, seed=args.seed),
+        sync=args.sync, device=args.device)
+    t0 = time.time()
+    try:
+        tr.init().run()
+    finally:
+        tr.close()
+    by_level = "".join(f" L{l}={n}" for l, n in
+                       sorted(tr.ledger.uplinks_by_level.items()))
+    print(f"intervals={tr.interval} wall={time.time() - t0:.1f}s "
+          f"uplinks={tr.ledger.uplinks}{by_level} "
+          f"d2d_msgs={tr.ledger.d2d_msgs} (tau={scale.tau} local steps "
+          f"per interval, sync={args.sync})")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["sim", "scale"], default="sim")
@@ -108,11 +152,18 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=10)
     ap.add_argument("--baseline", choices=["centralized", "fedavg"],
                     default=None)
+    # scale
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--replicas", type=int, default=4)
+    ap.add_argument("--cluster-size", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--sync", choices=["tthf", "star", "local"],
+                    default="tthf")
+    ap.add_argument("--consensus-mode", choices=["fused", "rounds"],
+                    default="fused")
     args = ap.parse_args(argv)
-    if args.mode == "scale":
-        raise NotImplementedError(
-            "--mode scale is not ported yet (ROADMAP.md Queue 1 item 6)")
-    return run_sim(args)
+    return run_sim(args) if args.mode == "sim" else run_scale(args)
 
 
 if __name__ == "__main__":

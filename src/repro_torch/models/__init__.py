@@ -1,3 +1,5 @@
 from repro_torch.models.simple import SimModel, make_sim_model, params_from_jax
+from repro_torch.models.registry import ModelApi, build_model
 
-__all__ = ["SimModel", "make_sim_model", "params_from_jax"]
+__all__ = ["ModelApi", "SimModel", "build_model", "make_sim_model",
+           "params_from_jax"]

@@ -19,9 +19,10 @@ import math
 from dataclasses import dataclass
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import params_from_jax
 
 
 @dataclass(frozen=True)
@@ -116,14 +117,6 @@ def make_sim_model(name: str, dim: int, num_classes: int,
     if name == "nn":
         return nn(dim, num_classes, hidden)
     raise ValueError(f"unknown sim model {name!r}")
-
-
-def params_from_jax(params: dict, device) -> dict:
-    """The reference's parameters, as numpy arrays, -> the port's
-    tensors on ``device``, keys in sorted order (the reference's leaf
-    order), dtypes kept."""
-    return {k: torch.from_numpy(np.array(params[k], copy=True)).to(device)
-            for k in sorted(params)}
 
 
 __all__ = ["SimModel", "make_sim_model", "nn", "params_from_jax", "svm"]

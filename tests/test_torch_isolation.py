@@ -57,6 +57,21 @@ tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
                  use_kernel=True, device="cpu")
 _, hist = tr.run(steps=2, eval_every=1)
 assert len(hist.global_loss) == 2
+for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
+            "repro_torch.models.transformer", "repro_torch.data.tokens",
+            "repro_torch.kernels.fused_consensus_sgd",
+            "repro_torch.kernels.fused_sgd"):
+    assert new in names, new
+from repro_torch.configs import get_arch
+from repro_torch.core.distributed import TTHFScaleConfig
+from repro_torch.train import ScaleTrainer, TrainerConfig
+st = ScaleTrainer(get_arch("qwen1.5-0.5b").reduced(d_model=64, vocab_size=64),
+                  TTHFScaleConfig(replicas=4, cluster_size=2, tau=2,
+                                  consensus_every=1),
+                  TrainerConfig(batch_per_replica=1, seq_len=8, intervals=1,
+                                eval_every=0, fused_interval=True),
+                  device="cpu").run()
+assert st.interval == 1 and st.ledger.uplinks == 2
 print(len(names))
 """
 
