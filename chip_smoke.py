@@ -33,13 +33,15 @@ caught):
              ``masked_loop``, held against each other); and a small run
              on the card against the same run on the CPU.
 4. scale   — ``ScaleTrainer`` on qwen1.5-0.5b at full size with the
-             scale CLI's defaults (4 replicas in clusters of 2, batch 4,
-             seq 128, τ 20, consensus every 5, Γ 2, f32) and
-             ``fused_interval=True``: 2 intervals after a warm-up, with
-             the ``fused_consensus_sgd`` counter reset just before (8
-             launches); the same run with the per-leaf step (loss rtol
-             1e-4, same ledger); and a reduced qwen run on the card
-             against the same run on the CPU (loss rtol 1e-4).
+             scale CLI's defaults (4 replicas in clusters of 2, batch 16
+             per replica, seq 128, τ 20, consensus every 5, Γ 2, f32)
+             and ``fused_interval=True``: 2 intervals after a warm-up,
+             with the launch counters reset just before (8
+             ``fused_consensus_sgd`` launches, no other kernel); the
+             same run with the per-leaf step (loss rtol 1e-4, same
+             ledger, the whole global model within atol 1e-5); and a
+             reduced qwen run on the card against the same run on the
+             CPU (loss rtol 1e-4).
 
 It prints the card's name and power limit first, one JSON line with the
 kernels' numbers before the last line, and as the last line
@@ -79,6 +81,7 @@ SGD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # the scale path: qwen1.5-0.5b's flat (R, P) buffer, R = 4 in clusters of 2
 QWEN_P = 464_118_784
 SCALE_LR = 2e-3                    # the scale CLI's --lr
+SCALE_BATCH = 16                   # the scale CLI's --batch (per replica)
 
 
 def log(msg: str) -> None:
@@ -494,30 +497,34 @@ def read_losses(path: Path) -> list:
             for line in path.read_text().splitlines()]
 
 
-def phase_scale(profile: bool = False) -> int:
+def phase_scale(profile: bool = False) -> dict:
     """ScaleTrainer on the full-size qwen1.5-0.5b: the fused interval
     (the main path, through fused_consensus_sgd), the per-leaf step held
-    to it, and a reduced run on the card held to the CPU."""
+    to it, and a reduced run on the card held to the CPU. Returns each
+    kernel's launches in the main path's run."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.distributed import TTHFScaleConfig
     from repro_torch.kernels.consensus_mix import consensus_mix
     from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.fused_sgd import fused_sgd
     from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
     from repro_torch.train import ScaleTrainer, TrainerConfig
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     cfg = get_arch("qwen1.5-0.5b")
-    # the scale CLI's defaults, batch 4 per replica
+    # the scale CLI's defaults
     scale = TTHFScaleConfig(replicas=4, cluster_size=2, tau=20,
                             consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
-    tokens_per_interval = scale.tau * scale.replicas * 4 * 128
+    tokens_per_interval = scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0), "cuda")
 
     def run(fused: bool, intervals: int, name: str, c=cfg, sc=scale,
-            batch=4, seq=128, device="cuda", weights=w0, seed=0):
+            batch=SCALE_BATCH, seq=128, device="cuda", weights=w0,
+            seed=0):
         log_path = out_dir / f"scale_{name}.jsonl"
         log_path.unlink(missing_ok=True)
         tr = ScaleTrainer(c, sc, TrainerConfig(
@@ -548,19 +555,26 @@ def phase_scale(profile: bool = False) -> int:
     torch.cuda.reset_peak_memory_stats()
     fused_consensus_sgd.launches = 0
     consensus_mix.launches = 0
+    fused_sgd.launches = 0
     tr, losses, wall, ledger = run(True, 2, "fused")
-    launches = fused_consensus_sgd.launches
+    launches = {"fused_consensus_sgd": fused_consensus_sgd.launches,
+                "fused_sgd": fused_sgd.launches}
     peak = torch.cuda.max_memory_allocated()
     assert tr._spec.total == QWEN_P, tr._spec.total
     assert np.isfinite(losses).all() and len(losses) == 2, losses
     # one launch per consensus block: 4 blocks per interval
-    assert launches == 8, launches
+    assert launches["fused_consensus_sgd"] == 8, launches
+    # no trainer calls fused_sgd, in the reference or in the port
+    assert launches["fused_sgd"] == 0, launches
     assert consensus_mix.launches == 0
-    g_fused = tr._global_params()["embed"][:4096].clone()
+    # the global model, replica 0's row of the flat (R, P) buffer
+    g_fused = tr.params[0].clone()
+    spec = tr._spec
     log(f"[scale] qwen1.5-0.5b fused interval: 2 intervals in {wall:.3f} s "
         f"= {2 / wall:.4f} intervals/s, {2 * tokens_per_interval / wall:.1f} "
         f"tokens/s, loss {losses}, ledger {ledger}, fused_consensus_sgd "
-        f"launches {launches}, max_memory_allocated {peak} B")
+        f"launches {launches['fused_consensus_sgd']}, fused_sgd launches "
+        f"{launches['fused_sgd']}, max_memory_allocated {peak} B")
     del tr
     torch.cuda.empty_cache()
     if profile:
@@ -576,12 +590,17 @@ def phase_scale(profile: bool = False) -> int:
     assert fused_consensus_sgd.launches == 0
     np.testing.assert_allclose(losses2, losses, rtol=1e-4)
     assert ledger2 == ledger, (ledger2, ledger)
-    diff = float((tr2._global_params()["embed"][:4096] - g_fused).abs().max())
+    # every parameter of the global model, leaf by leaf (params atol
+    # 1e-5, as the CPU tests hold the two steps)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(tr2._global_params()),
+        spec.leaf_views(g_fused)))
+    assert diff <= 1e-5, diff
     log(f"[scale] qwen1.5-0.5b per-leaf step: 2 intervals in {wall2:.3f} s "
         f"= {2 / wall2:.4f} intervals/s, loss {losses2} (rtol 1e-4 vs the "
         f"fused run), same ledger, max_memory_allocated {peak2} B, global "
-        f"embed rows 0-4095 max |diff| {diff:.3e}")
-    del tr2
+        f"model ({QWEN_P} parameters) max |diff| {diff:.3e} (atol 1e-5)")
+    del tr2, g_fused
     torch.cuda.empty_cache()
     if profile:
         profile_main_path(lambda: run(False, 1, "profile_perleaf")[2],
@@ -660,19 +679,20 @@ def main() -> int:
                **timed("fused kernels", phase_fused_kernels)}
     launches = {"consensus_mix": timed("slice", phase_slice,
                                        profile=profile),
-                "fused_consensus_sgd": timed("scale", phase_scale,
-                                             profile=profile),
-                # no trainer calls it, in the reference or in the port
-                "fused_sgd": 0}
+                **timed("scale", phase_scale, profile=profile)}
     replaces = {"consensus_mix": "src/repro/kernels/consensus_mix.py:44",
                 "fused_consensus_sgd":
                     "src/repro/kernels/fused_consensus_sgd.py:52",
                 "fused_sgd": "src/repro/kernels/fused_sgd.py:37"}
+    # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
+    sources = {"consensus_mix": "src/repro_torch/csrc/consensus_mix.cu",
+               "fused_consensus_sgd":
+                   "src/repro_torch/csrc/fused_consensus_sgd.cu",
+               "fused_sgd": "src/repro_torch/csrc/fused_consensus_sgd.cu"}
     kernels = []
     for name, nums in numbers.items():
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "on_main_path": name != "fused_sgd",
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],

@@ -227,16 +227,14 @@ def stack_replicas(params: dict, replicas: int) -> dict:
 # the TT-HF interval step
 # ---------------------------------------------------------------------------
 
-def _loss_and_grads(model: ModelApi, params: dict, mb: dict, dtype,
-                    remat: bool):
+def _loss_and_grads(model: ModelApi, params: dict, mb: dict, dtype):
     """One replica's loss and its gradients (the reference's
     ``value_and_grad``), in leaf order. The parameters are taken as new
     autograd leaves that share storage with ``params``."""
     items = tree_items(params)
     leaves = [v.detach().requires_grad_(True) for _, v in items]
     loss = model.loss(tree_from_items(
-        (p, l) for (p, _), l in zip(items, leaves)), mb, dtype=dtype,
-        remat=remat)
+        (p, l) for (p, _), l in zip(items, leaves)), mb, dtype=dtype)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), grads
 
@@ -266,7 +264,7 @@ def _refuse_unported(scale: TTHFScaleConfig, sync: str, refreshable: bool,
 
 
 def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
-                         dtype=torch.bfloat16, remat: bool = True,
+                         dtype=torch.bfloat16,
                          sync: str = "tthf", refreshable: bool = False,
                          hierarchy=None, fused_interval: bool = False,
                          fused_kernel: Optional[bool] = None,
@@ -319,7 +317,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         return _make_fused_interval_step(
             model, scale, net=net, plan=plan, n_blocks=n_blocks,
             block_batches=block_batches, aggregate=aggregate, dtype=dtype,
-            remat=remat, fused_kernel=fused_kernel,
+            fused_kernel=fused_kernel,
             param_dtype=param_dtype, device=device)
 
     def microstep(params, mb, lr):
@@ -330,7 +328,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         for r in range(R):
             loss, grads = _loss_and_grads(
                 model, tree_map(lambda l: l[r], params), _replica(mb, r),
-                dtype, remat)
+                dtype)
             with torch.no_grad():
                 for w, g in zip(tree_leaves(params), grads):
                     w[r].sub_(lr.to(w.dtype) * g.to(w.dtype))
@@ -362,7 +360,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
 def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                               net: Network, plan: Optional[MixingPlan],
                               n_blocks: int, block_batches, aggregate,
-                              dtype, remat: bool,
+                              dtype,
                               fused_kernel: Optional[bool], param_dtype,
                               device: torch.device):
     """The ``fused_interval=True`` build — see ``make_tthf_train_step``.
@@ -381,7 +379,7 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
 
     def replica_grads(flat, mb, r):
         return _loss_and_grads(model, spec.unflatten_one(flat[r]),
-                               _replica(mb, r), dtype, remat)
+                               _replica(mb, r), dtype)
 
     def sgd(flat, mb, lr):
         """One microstep on the flat buffer, in place."""

@@ -26,6 +26,11 @@
 // column order. A ragged M is masked here, not padded in device memory.
 // Vector loads, an in-place output and TMA are left for later work.
 //
+// The same kernel also replaces repro/kernels/fused_sgd.py::fused_sgd:
+// kernels/fused_sgd.py launches the S = 1 instance on the flattened tensor,
+// (1, 1, numel), with W = [[1]]; fmaf(1, w', 0) = w' exactly, so it computes
+// w - eta * (g + wd * w) with the same rounding (bound 3 * bytes(w) / HBM rate).
+//
 // C interface (loaded with ctypes): fused_consensus_sgd_f32 / _bf16 launch on
 // the given stream, allocate nothing, and return cudaGetLastError()
 // (cudaErrorInvalidValue for a cluster size above kMaxClusterSize).

@@ -92,6 +92,27 @@ def _check(w: torch.Tensor, g: torch.Tensor, W: torch.Tensor) -> None:
                          f"{g.device} and {W.device}")
 
 
+def launch(w: torch.Tensor, g: torch.Tensor, W: torch.Tensor, eta: Any,
+           weight_decay: float) -> torch.Tensor:
+    """Run the kernel on checked, contiguous CUDA tensors w, g (N, s, M)
+    and W (N, s, s); counts nothing (each wrapper counts its own
+    launches). Raises if the launch fails."""
+    N, s, M = w.shape
+    eta = eta_tensor(eta, w.device)
+    out = torch.empty_like(w)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_library(), _ENTRY[w.dtype])
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = fn(w.data_ptr(), g.data_ptr(), W.data_ptr(), eta.data_ptr(),
+                 float(weight_decay), out.data_ptr(), N, s, M, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_consensus_sgd kernel launch failed with CUDA error {err}")
+    return out
+
+
 def fused_consensus_sgd(w: torch.Tensor, g: torch.Tensor, W: torch.Tensor,
                         eta: Any, weight_decay: float = 0.0) -> torch.Tensor:
     """w, g: (N, s, M) float32/bfloat16, W: (N, s, s) float32, eta: a
@@ -116,18 +137,7 @@ def fused_consensus_sgd(w: torch.Tensor, g: torch.Tensor, W: torch.Tensor,
         raise ValueError(f"{N} clusters exceed the kernel's {_MAX_CLUSTERS}")
     if not (w.is_contiguous() and g.is_contiguous() and W.is_contiguous()):
         raise ValueError("fused_consensus_sgd needs contiguous w, g and W")
-    eta = eta_tensor(eta, w.device)
-    out = torch.empty_like(w)
-    if out.numel() == 0:
-        return out
-    fn = getattr(_library(), _ENTRY[w.dtype])
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(w.data_ptr(), g.data_ptr(), W.data_ptr(), eta.data_ptr(),
-                 float(weight_decay), out.data_ptr(), N, s, M, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_consensus_sgd kernel launch failed with CUDA error {err}")
+    out = launch(w, g, W, eta, weight_decay)
     fused_consensus_sgd.launches += 1
     return out
 

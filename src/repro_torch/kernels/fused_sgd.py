@@ -5,8 +5,11 @@ plain version.
 fused_sgd.py::fused_sgd``: the update half of
 :mod:`repro_torch.kernels.fused_consensus_sgd`, one elementwise pass over
 any contiguous tensor, float32 inside. On a CUDA tensor it launches the
-hand-written kernel of ``csrc/fused_sgd.cu`` (built for ``sm_90a`` at
-first use); on a CPU tensor it runs :func:`fused_sgd_plain`. There is no
+hand-written kernel of ``csrc/fused_consensus_sgd.cu`` on the flattened
+tensor seen as one cluster of one replica, ``(1, 1, numel)``, with a 1x1
+W of ones: ``fmaf(1, w', 0) = w'`` exactly, so that instance computes the
+update with the same rounding, and the port keeps one body to build and
+speed up. On a CPU tensor it runs :func:`fused_sgd_plain`. There is no
 fallback from one to the other.
 
 No trainer calls it, in the reference or in the port (the reference
@@ -18,15 +21,14 @@ TB/s`` on an H100 SXM. ``fused_sgd.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Any
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.fused_consensus_sgd import eta_tensor
+from repro_torch.kernels.fused_consensus_sgd import eta_tensor, launch
 
-_ENTRY = {torch.float32: "fused_sgd_f32", torch.bfloat16: "fused_sgd_bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
+_ONES: dict[torch.device, torch.Tensor] = {}   # the 1x1 W, per device
 
 
 def fused_sgd_plain(w: torch.Tensor, g: torch.Tensor, eta: Any,
@@ -37,17 +39,6 @@ def fused_sgd_plain(w: torch.Tensor, g: torch.Tensor, eta: Any,
     if weight_decay:
         gf = gf + weight_decay * wf
     return (wf - eta * gf).to(w.dtype)
-
-
-def _library() -> ctypes.CDLL:
-    lib = build.load("fused_sgd")
-    for entry in _ENTRY.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def fused_sgd(w: torch.Tensor, g: torch.Tensor, eta: Any,
@@ -61,7 +52,7 @@ def fused_sgd(w: torch.Tensor, g: torch.Tensor, eta: Any,
     if g.shape != w.shape:
         raise ValueError(f"g must match w's {tuple(w.shape)}, "
                          f"got {tuple(g.shape)}")
-    if w.dtype not in _ENTRY:
+    if w.dtype not in _DTYPES:
         raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
     if g.dtype != w.dtype:
         raise TypeError(f"g must be {w.dtype} like w, got {g.dtype}")
@@ -73,18 +64,12 @@ def fused_sgd(w: torch.Tensor, g: torch.Tensor, eta: Any,
         raise ValueError(f"fused_sgd runs on cpu or cuda, not {w.device}")
     if not (w.is_contiguous() and g.is_contiguous()):
         raise ValueError("fused_sgd needs contiguous w and g")
-    eta = eta_tensor(eta, w.device)
-    out = torch.empty_like(w)
-    if out.numel() == 0:
-        return out
-    fn = getattr(_library(), _ENTRY[w.dtype])
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = fn(w.data_ptr(), g.data_ptr(), eta.data_ptr(),
-                 float(weight_decay), out.data_ptr(), w.numel(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_sgd kernel launch failed with CUDA error {err}")
+    ones = _ONES.get(w.device)
+    if ones is None:
+        ones = _ONES[w.device] = torch.ones((1, 1, 1), device=w.device)
+    n = w.numel()
+    out = launch(w.view(1, 1, n), g.view(1, 1, n), ones, eta,
+                 weight_decay).view(w.shape)
     fused_sgd.launches += 1
     return out
 

@@ -40,13 +40,11 @@ class ModelApi:
         return tree_map(lambda x: x.to(dtype), params), axes
 
     # -- training -------------------------------------------------------
-    def loss(self, params, batch, *, dtype=torch.bfloat16, remat=True):
-        return tfm.loss_fn(params, self.cfg, batch, dtype=dtype,
-                           remat=remat)
+    def loss(self, params, batch, *, dtype=torch.bfloat16):
+        return tfm.loss_fn(params, self.cfg, batch, dtype=dtype)
 
-    def forward(self, params, batch, *, dtype=torch.bfloat16, remat=True):
-        return tfm.forward(params, self.cfg, batch, dtype=dtype,
-                           remat=remat)
+    def forward(self, params, batch, *, dtype=torch.bfloat16):
+        return tfm.forward(params, self.cfg, batch, dtype=dtype)
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:

@@ -5,8 +5,8 @@ Per-layer parameters stay stacked on a leading ``layers`` axis, as in
 the reference, so the leaves, their order and a flat buffer's offsets
 match the reference column for column; the layer loop is a Python loop
 over that axis (the reference's ``lax.scan``). The reference's
-activation rematerialization (``remat``) changes no number, and the
-port leaves it out: ``remat`` is accepted and ignored.
+activation rematerialization (``remat``) changes no number; the port
+leaves it out and takes no ``remat`` option (ROADMAP.md Queue 1 item 6).
 
 The other kinds (moe, ssm, hybrid, vlm, encdec, audio) raise
 ``NotImplementedError``: they come with ROADMAP.md Queue 1 item 6.
@@ -126,10 +126,9 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
                             zip(items, slices)) for i in range(n)]
 
 
-def forward(p, cfg, batch, *, dtype=torch.bfloat16, remat: bool = True):
+def forward(p, cfg, batch, *, dtype=torch.bfloat16):
     """Full-sequence forward -> (logits, aux_losses).
-    batch: {"tokens": (B, T) int}. ``remat`` changes no number and is
-    ignored (see the module note)."""
+    batch: {"tokens": (B, T) int}."""
     _require_dense(cfg)
     x = _embed_tokens(p, cfg, batch["tokens"], dtype)
     mode, window = "causal", 0
@@ -141,8 +140,8 @@ def forward(p, cfg, batch, *, dtype=torch.bfloat16, remat: bool = True):
     return _unembed(p, cfg, x), {}
 
 
-def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16, remat: bool = True):
-    logits, _ = forward(p, cfg, batch, dtype=dtype, remat=remat)
+def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16):
+    logits, _ = forward(p, cfg, batch, dtype=dtype)
     return softmax_cross_entropy(logits, batch["labels"])
 
 

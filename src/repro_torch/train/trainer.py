@@ -179,8 +179,7 @@ class ScaleTrainer:
                 b = self._to_device({k: torch.from_numpy(v) for k, v in
                                      next(self._eval_gen).items()})
                 self._eval_draws += 1
-                losses.append(float(self.model.loss(
-                    g, b, dtype=self.dtype, remat=False)))
+                losses.append(float(self.model.loss(g, b, dtype=self.dtype)))
         return float(np.mean(losses))
 
     def _interval(self, batch):

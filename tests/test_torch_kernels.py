@@ -118,8 +118,9 @@ def test_fused_wrappers_refuse_bad_inputs_before_dispatch():
 
 
 def test_build_names_the_sources():
-    for name in ("consensus_mix", "fused_consensus_sgd", "fused_sgd"):
-        assert name in build.sources()
+    # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
+    assert build.sources() == ["consensus_mix", "fused_consensus_sgd"]
+    for name in build.sources():
         lib = build.library_path(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
@@ -168,9 +169,12 @@ def test_fused_sgd_kernel_on_card(cuda_device, dtype, wd):
     for i, shape in enumerate(SGD_SHAPES):
         w, g = _sgd_inputs(shape, dtype, cuda_device, seed=i)
         before = fused_sgd.launches
+        before_fcs = fused_consensus_sgd.launches
         out = fused_sgd(w, g, eta, weight_decay=wd)
         torch.cuda.synchronize()
         assert fused_sgd.launches == before + 1
+        # the shared kernel's launch counts as fused_sgd's only
+        assert fused_consensus_sgd.launches == before_fcs
         assert out.dtype == dtype and out.shape == w.shape
         np.testing.assert_allclose(
             out.float().cpu().numpy(),
