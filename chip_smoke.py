@@ -5,11 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths — the paper's Algorithm 1 in
+It drives the port's three main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
-the 784-7840-10 NN), and TT-HF as the scale-mode sync strategy on the
-full-size qwen1.5-0.5b (24 layers, d 1024, vocabulary 151,936) — and
-holds every kernel of those paths against its plain PyTorch version.
+the 784-7840-10 NN), TT-HF as the scale-mode sync strategy on the
+full-size qwen1.5-0.5b (24 layers, d 1024, vocabulary 151,936), and
+paged continuous-batching serving of the same model — and holds every
+kernel of those paths against its plain PyTorch version.
 Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
 
@@ -25,7 +26,14 @@ caught):
              plain version and a library yardstick the port never calls
              (``torch.bmm`` with the precomputed ``V^Γ``; ``torch.add``
              with ``alpha=-η``; and the two calls ``torch.bmm(W,
-             torch.add(w, g, alpha=-η))``).
+             torch.add(w, g, alpha=-η))``). ``paged_decode`` at the
+             shapes of tests/test_torch_kernels.py (the reference's test
+             shape, all-dummy rows with pos past their pages, the serve
+             path's shape, a gemma-2b-like MQA and a starcoder2-3b-like
+             GQA past its 4096 window), f32 and bf16 pools, atol 1e-5;
+             timed at the serve path's shape with its inputs rotated
+             over copies larger than the L2, beside the page gather plus
+             ``scaled_dot_product_attention`` (two calls).
 3. slice   — ``TTHFTrainer`` on the card, kernel on: 40 steps, with the
              launch counter reset just before; then the same run through
              the ``masked_loop`` backend (same loss history, same
@@ -42,6 +50,22 @@ caught):
              ledger, the whole global model within atol 1e-5); and a
              reduced qwen run on the card against the same run on the
              CPU (loss rtol 1e-4).
+5. serve   — ``PagedContinuousScheduler`` on qwen1.5-0.5b at full size
+             (random weights from seed 0, f32 weights and cache) through
+             the serve CLI's trace (``launch/serve.py::make_arrivals``:
+             32 requests, 8 slots, prompts up to 512 tokens with a
+             128-token shared template, 128 new tokens, page size 16,
+             chunks of 256, temperature 0), with the launch counter
+             reset just before (``paged_decode`` once per layer per
+             decode step) and no page leaked; the same trace through the
+             plain gather (every stat equal), through a one-shot paged
+             prefill and the ring ``ContinuousScheduler`` (every stat
+             equal; chunking moves first tokens by a tick, so the
+             chunked run is held to the ring on requests, prefills and
+             tokens); teacher-forced logits of 16 decode steps of 8
+             prefilled slots, kernel against plain gather (atol 1e-4);
+             and a reduced-qwen trace on the card against the same trace
+             on the CPU (the same tokens).
 
 It prints the card's name and power limit first, one JSON line with the
 kernels' numbers before the last line, and as the last line
@@ -49,9 +73,9 @@ kernels' numbers before the last line, and as the last line
 (TF32 off for matmul and cuDNN). Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 
-``--profile`` adds one profiled 20-step run of the sim path and one
-profiled interval of the scale path, and prints the device time by
-kernel and the device's idle share.
+``--profile`` adds one profiled 20-step run of the sim path, one
+profiled interval of the scale path and one profiled serve trace, and
+prints the device time by kernel and the device's idle share.
 """
 from __future__ import annotations
 
@@ -82,6 +106,26 @@ SGD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 QWEN_P = 464_118_784
 SCALE_LR = 2e-3                    # the scale CLI's --lr
 SCALE_BATCH = 16                   # the scale CLI's --batch (per replica)
+# paged_decode: name -> (B, K, G, hd, page_size, P, num_pages, window,
+# pos), the cases of tests/test_torch_kernels.py; a pos of None is a
+# retired slot: an all-dummy page-map row and a pos past its pages
+PAGED_CASES = {
+    "reference": (2, 2, 2, 8, 4, 3, 4, 0, [5, 9]),
+    "reference-window": (2, 2, 2, 8, 4, 3, 4, 4, [5, 9]),
+    "dummy-row": (3, 2, 2, 8, 4, 3, 7, 0, [5, None, 11]),
+    "dummy-row-window": (3, 2, 2, 8, 4, 3, 7, 4, [5, None, 11]),
+    "qwen-serve": (8, 16, 1, 64, 16, 40, 321, 0,
+                   [80 * (b + 1) - 1 for b in range(8)]),
+    "gemma-mqa": (4, 1, 8, 256, 16, 8, 33, 0, [3, 60, None, 127]),
+    "starcoder-window": (2, 2, 12, 128, 16, 320, 641, 4096, [4500, 5119]),
+}
+PAGED_TOL = 1e-5
+# the serve path: the serve CLI's paged trace at full width and depth
+SERVE_TRACE = dict(requests=32, prompt_len=512, gen=128, seed=0,
+                   prefix_template=128, arrival_gap=2.0)
+SERVE_SCHED = dict(slots=8, max_prompt=512, max_total=512 + 128,
+                   temperature=0.0, seed=0)
+SERVE_PAGED = dict(page_size=16, prefill_chunk=256)
 
 
 def log(msg: str) -> None:
@@ -132,15 +176,24 @@ def mixing_inputs(shape, dtype, seed, gamma=None):
 
 
 def phase_build() -> None:
+    import re
+
     from repro_torch.kernels import build
     t0 = time.time()
     reports = build.build()
     log(f"[build] {build.sources()} built with nvcc "
         f"{' '.join(build.NVCC_FLAGS)} in {time.time() - t0:.2f} s")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        (out_dir / f"nvcc_{name}.txt").write_text(report)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        spills = [int(r) for r in
+                  re.findall(r"(\d+) bytes spill stores", report)]
+        log(f"[build] {name}: {len(regs)} kernel instances, registers "
+            f"{min(regs, default=0)}..{max(regs, default=0)}, spill stores "
+            f"up to {max(spills, default=0)} B (ptxas report in "
+            f"chiprun_out/nvcc_{name}.txt)")
 
 
 def phase_kernels() -> dict:
@@ -626,6 +679,324 @@ def phase_scale(profile: bool = False) -> dict:
     return launches
 
 
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls: the
+    device sleeps while the host queues them, so that the time of a
+    kernel of some microseconds is not the host's launch time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)        # ~0.1 s at the H100's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paged_inputs(case, dtype, seed=0, copies=1):
+    """q, [(k_pages, v_pages)] * copies, page_map, pos, window on the
+    card, from one numpy seed (as tests/test_torch_kernels.py)."""
+    import torch
+    B, K, G, hd, ps, P, N, window, pos = PAGED_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, K, G, hd)).astype(np.float32)
+    kp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
+    vp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
+    pages = rng.permutation(np.arange(1, N))
+    page_map = np.zeros((B, P), np.int32)
+    pos_v = np.zeros((B,), np.int32)
+    for b, pb in enumerate(pos):
+        if pb is None:
+            pos_v[b] = P * ps + 7
+        else:
+            page_map[b] = pages[b * P:(b + 1) * P] if N > B * P else \
+                rng.choice(np.arange(1, N), size=P)
+            pos_v[b] = pb
+    cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    pools = [(cuda(kp).to(dtype), cuda(vp).to(dtype))]
+    # the timing copies: other values, the same shapes
+    pools += [(torch.randn_like(pools[0][0]), torch.randn_like(pools[0][1]))
+              for _ in range(copies - 1)]
+    return cuda(q), pools, cuda(page_map), cuda(pos_v), window
+
+
+def phase_paged_kernel() -> dict:
+    """``paged_decode`` against its plain version at every case, f32 and
+    bf16 pools; then timed at the serve path's shape against its bound,
+    its plain version and a library yardstick."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode import (
+        paged_decode, paged_decode_plain)
+
+    worst = {}
+    for case in PAGED_CASES:
+        for dt in ("float32", "bfloat16"):
+            q, pools, pm, pos, window = paged_inputs(case, getattr(torch, dt))
+            (kp, vp), = pools
+            out = paged_decode(q, kp, vp, pm, pos, window=window)
+            torch.cuda.synchronize()
+            plain = paged_decode_plain(q, kp, vp, pm, pos, window=window)
+            assert out.dtype == torch.float32 and out.shape == q.shape
+            assert torch.isfinite(out).all(), case
+            err = float((out - plain).abs().max())
+            assert err <= PAGED_TOL, (case, dt, err)
+            worst[dt] = max(worst.get(dt, 0.0), err)
+            log(f"[kernels] paged_decode {case} {PAGED_CASES[case][:8]} "
+                f"{dt} max_abs_err={err:.3e} (tol {PAGED_TOL})")
+
+    # the serve path's shape, f32; four copies of the pools (4 x 42 MB)
+    # rotate, so each launch finds its pages out of the 50 MB L2, as
+    # every layer's pages are in a decode step
+    q, pools, pm, pos, window = paged_inputs("qwen-serve", torch.float32,
+                                             seed=1, copies=4)
+    B, K, G, hd, ps, P, _, _, _ = PAGED_CASES["qwen-serve"]
+    kp, vp = pools[0]
+    out = paged_decode(q, kp, vp, pm, pos, window=window)
+    torch.cuda.synchronize()
+    err = float((out - paged_decode_plain(q, kp, vp, pm, pos,
+                                          window=window)).abs().max())
+    assert err <= PAGED_TOL, err
+    turn = itertools.cycle(pools)
+    ms = device_ms(lambda: paged_decode(q, *next(turn), pm, pos,
+                                        window=window), iters=400)
+    plain_ms = device_ms(lambda: paged_decode_plain(q, *next(turn), pm, pos,
+                                                    window=window), iters=100)
+    # the library yardstick: one gather of both pools and SDPA with the
+    # same boolean mask (the G query heads of a kv head as its queries)
+    kvs = [torch.stack([k, v]) for k, v in pools]
+    pml = pm.long()
+    k_pos = torch.arange(P * ps, device="cuda")
+    mask = (k_pos[None, :] <= pos.long()[:, None])[:, None, None, :]
+
+    def library(kv):
+        g = kv[:, pml].reshape(2, B, P * ps, K, hd).transpose(2, 3)
+        return F.scaled_dot_product_attention(q, g[0], g[1], attn_mask=mask)
+
+    lib_err = float((library(kvs[0]) - out).abs().max())
+    rot = itertools.cycle(kvs)
+    library_ms = device_ms(lambda: library(next(rot)), iters=100)
+    # the positions the kernel walks: max(0, pos - window + 1) ..
+    # min(pos, P*ps - 1) (window 0 at this shape)
+    live = int((torch.clamp(pos.long(), max=P * ps - 1) + 1).sum())
+    bytes_moved = (2 * live * K * hd * kp.element_size()
+                   + 2 * q.numel() * 4 + (pm.numel() + pos.numel()) * 4)
+    b_ms, b_by = bound(bytes_moved, 4 * live * K * G * hd)
+    log(f"[kernels] paged_decode {PAGED_CASES['qwen-serve'][:7]} f32, "
+        f"{live} live positions: kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, gather + scaled_dot_product_attention "
+        f"{library_ms * 1e3:.2f} us (max |diff| vs kernel {lib_err:.2e}), "
+        f"bound {b_ms * 1e3:.2f} us ({b_by}: {bytes_moved} B at 3.35 TB/s), "
+        f"kernel at {bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err {err:.3e}")
+    del pools, kvs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err_all_shapes": {"float32": max(worst["float32"], err),
+                                       "bfloat16": worst["bfloat16"]}}
+
+
+TRACE_STATS = ("requests_done", "prefills", "decode_steps",
+               "tokens_generated", "slot_steps", "live_slot_steps")
+RECORD_FIELDS = ("rid", "submit", "admit", "first_token", "retire",
+                 "decode", "budget")
+
+
+def trace_stats(stats, sched=None) -> dict:
+    """A trace's stats and per-request records; with a paged scheduler,
+    its page counters too."""
+    out = {f: getattr(stats, f) for f in TRACE_STATS}
+    out["records"] = [tuple(getattr(r, f) for f in RECORD_FIELDS)
+                      for r in stats.records]
+    if hasattr(sched, "page_deferrals"):
+        out.update(page_deferrals=sched.page_deferrals,
+                   prefix_pages_hit=sched.prefix_pages_hit,
+                   prefix_pages_possible=sched.prefix_pages_possible,
+                   prefill_chunks=[r.prefill_chunks for r in stats.records])
+    return out
+
+
+def phase_serve(profile: bool = False) -> int:
+    """Paged continuous-batching serving of the full-size qwen1.5-0.5b
+    through the serve CLI's trace: the main path (the paged_decode
+    kernel), the plain gather, a one-shot paged prefill and the ring
+    scheduler held to it, teacher-forced logits, and a reduced trace on
+    the card against the CPU. Returns paged_decode's launches in the
+    main path's run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.launch.serve import make_arrivals
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import (
+        PageTable, make_scheduler, pages_per_slot, run_trace)
+
+    cfg = get_arch("qwen1.5-0.5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+
+    def run(kind, *, c=cfg, m=model, p=params, trace=SERVE_TRACE,
+            device="cuda", **over):
+        kw = dict(SERVE_SCHED, device=device, **over)
+        if kind == "paged":
+            kw = {**SERVE_PAGED, **kw}
+        sched = make_scheduler(kind, m, **kw)
+        arrivals = make_arrivals(c, **trace)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        stats = run_trace(sched, p, arrivals)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return sched, stats, arrivals, time.time() - t0
+
+    # warm-up: allocator, cuBLAS handles, the kernel's first load
+    _, st, _, wall = run("paged", trace=dict(SERVE_TRACE, requests=2, gen=4))
+    log(f"[serve] warm-up: 2 requests, {st.decode_steps} decode steps in "
+        f"{wall:.3f} s")
+
+    # the main path: PagedContinuousScheduler with the kernel (auto-on)
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode.launches = 0
+    sched, stats, arrivals, wall = run("paged")
+    launches = paged_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    main = trace_stats(stats, sched)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in sched._cache["layers"].values())
+    assert sched.paged_kernel and sched.cache_pages == 321, sched.cache_pages
+    assert stats.requests_done == SERVE_TRACE["requests"]
+    assert launches == cfg.num_layers * stats.decode_steps, launches
+    assert sched.table.num_free == sched.cache_pages - 1   # no page leaked
+    assert len(sched.trie) == 0
+    assert all(len(r.out_tokens) == r.budget for _, r in arrivals)
+    assert sched.prefix_pages_hit > 0
+    log(f"[serve] qwen1.5-0.5b paged (kernel): {stats.requests_done} "
+        f"requests, {stats.prefills} prefills in "
+        f"{sum(main['prefill_chunks'])} chunks, {stats.decode_steps} decode "
+        f"steps, {stats.tokens_generated} tokens in {wall:.3f} s = "
+        f"{stats.tokens_generated / wall:.1f} tokens/s, "
+        f"{stats.decode_steps / wall:.2f} decode steps/s, util "
+        f"{stats.utilization:.3f}, prefix hit rate {sched.prefix_hit_rate:.4f}"
+        f" ({sched.prefix_pages_hit}/{sched.prefix_pages_possible} pages), "
+        f"deferrals {sched.page_deferrals}, paged_decode launches {launches} "
+        f"= {cfg.num_layers} x {stats.decode_steps}, pool {pool_bytes} B, "
+        f"max_memory_allocated {peak} B, no page leaked")
+    kernel_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    del sched
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: run("paged")[3], "serve trace (paged)")
+
+    # the same trace through the plain gather: the schedule and every
+    # stat are the kernel run's (requests retire by budget, not by token)
+    paged_decode.launches = 0
+    sched, stats, arrivals, wall2 = run("paged", paged_kernel=False)
+    assert paged_decode.launches == 0
+    assert trace_stats(stats, sched) == main
+    same = sum(kernel_tokens[r.rid] == r.out_tokens for _, r in arrivals)
+    log(f"[serve] plain gather: {wall2:.3f} s = "
+        f"{stats.tokens_generated / wall2:.1f} tokens/s, every stat and "
+        f"record equal to the kernel run; {same}/{len(arrivals)} requests "
+        f"with identical greedy tokens at the full vocabulary")
+    del sched
+    torch.cuda.empty_cache()
+
+    # one-shot paged prefill against the ring scheduler: every stat equal
+    sched, stats, _, wall3 = run("paged", prefill_chunk=None)
+    oneshot = trace_stats(stats)
+    del sched
+    torch.cuda.empty_cache()
+    sched, stats, _, wall4 = run("continuous")
+    ring = trace_stats(stats)
+    assert ring == oneshot, (ring, oneshot)
+    for f in ("requests_done", "prefills", "tokens_generated"):
+        assert ring[f] == main[f], f
+    log(f"[serve] ring ContinuousScheduler: {wall4:.3f} s = "
+        f"{stats.tokens_generated / wall4:.1f} tokens/s, every stat equal "
+        f"to the one-shot paged run ({wall3:.3f} s, {ring['decode_steps']} "
+        f"decode steps); the chunked run's {main['decode_steps']} decode "
+        f"steps: its two-chunk prompts emit a tick later")
+    del sched
+    torch.cuda.empty_cache()
+
+    # teacher forcing: 8 prompts of the trace prefilled, then 16 decode
+    # steps fed the same tokens through the kernel and the plain gather
+    ps, P = SERVE_PAGED["page_size"], pages_per_slot(
+        SERVE_SCHED["max_total"], SERVE_PAGED["page_size"])
+    slots, steps = SERVE_SCHED["slots"], 16
+    cache = model.init_paged_cache(slots, slots * P + 1, ps, torch.float32,
+                                   device="cuda")
+    table = PageTable(slots * P + 1, ps)
+    page_map = np.zeros((slots, P), np.int32)
+    plens = np.zeros((slots,), np.int32)
+    chunk = SERVE_PAGED["prefill_chunk"]
+    for b, (_, req) in enumerate(arrivals[:slots]):
+        plen = len(req.prompt)
+        pages = table.alloc(-(-(plen + steps) // ps))
+        page_map[b, :len(pages)] = pages
+        padded = np.zeros((1, -(-plen // chunk) * chunk), np.int32)
+        padded[0, :plen] = req.prompt
+        for start in range(0, plen, chunk):
+            toks = torch.from_numpy(padded[:, start:start + chunk]).cuda()
+            model.prefill_chunk(params, cache, toks, start,
+                                min(chunk, plen - start), page_map[b], b,
+                                dtype=torch.float32)
+        plens[b] = plen
+    cache_plain = tree_map(lambda t: t.clone(), cache)
+    feed = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(steps, slots, 1)).astype(np.int32)
+    pm, live = torch.from_numpy(page_map).cuda(), torch.ones(
+        slots, dtype=torch.bool, device="cuda")
+    pos = torch.from_numpy(plens).cuda()
+    tf_err = 0.0
+    for i in range(steps):
+        tok = torch.from_numpy(feed[i]).cuda()
+        lk, _ = model.decode_step_paged(params, tok, cache, pos, pm, live,
+                                        dtype=torch.float32, use_kernel=True)
+        lp, _ = model.decode_step_paged(params, tok, cache_plain, pos, pm,
+                                        live, dtype=torch.float32,
+                                        use_kernel=False)
+        assert torch.isfinite(lk).all()
+        tf_err = max(tf_err, float((lk - lp).abs().max()))
+        pos = pos + 1
+    assert tf_err <= 1e-4, tf_err
+    log(f"[serve] teacher forcing, {slots} prefilled prompts of "
+        f"{plens.tolist()} tokens, {steps} decode steps over "
+        f"{cfg.num_layers} layers: logits max |kernel - plain| {tf_err:.3e} "
+        f"(atol 1e-4)")
+    del cache, cache_plain, params
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a reduced qwen, the same weights and trace
+    small = cfg.reduced()
+    sm = build_model(small)
+    w_cpu = sm.init(torch.Generator().manual_seed(1), "cpu")
+    w_gpu = tree_map(lambda t: t.cuda(), w_cpu)
+    trace = dict(requests=8, prompt_len=64, gen=16, seed=1,
+                 prefix_template=20, arrival_gap=2.0)
+    over = dict(max_prompt=64, max_total=80, slots=4, prefill_chunk=32)
+    outs = {}
+    for dev, w in (("cuda", w_gpu), ("cpu", w_cpu)):
+        sc, st, arr, _ = run("paged", c=small, m=sm, p=w, trace=trace,
+                             device=dev, **over)
+        outs[dev] = ([r.out_tokens for _, r in arr], trace_stats(st, sc))
+    assert outs["cuda"] == outs["cpu"]
+    log(f"[serve] reduced qwen paged trace on cuda vs cpu: the same tokens "
+        f"for all {trace['requests']} requests and the same stats "
+        f"({outs['cpu'][1]['decode_steps']} decode steps)")
+    return launches
+
+
 def profile_main_path(fn, label: str) -> None:
     """Device time by kernel and the device's busy share over one run
     of a main path (torch.profiler, CUDA activity only: recording every
@@ -677,18 +1048,23 @@ def main() -> int:
     timed("build", phase_build)
     numbers = {"consensus_mix": timed("kernels", phase_kernels),
                **timed("fused kernels", phase_fused_kernels)}
+    numbers["paged_decode"] = timed("paged kernel", phase_paged_kernel)
     launches = {"consensus_mix": timed("slice", phase_slice,
                                        profile=profile),
-                **timed("scale", phase_scale, profile=profile)}
+                **timed("scale", phase_scale, profile=profile),
+                "paged_decode": timed("serve", phase_serve,
+                                      profile=profile)}
     replaces = {"consensus_mix": "src/repro/kernels/consensus_mix.py:44",
                 "fused_consensus_sgd":
                     "src/repro/kernels/fused_consensus_sgd.py:52",
-                "fused_sgd": "src/repro/kernels/fused_sgd.py:37"}
+                "fused_sgd": "src/repro/kernels/fused_sgd.py:37",
+                "paged_decode": "src/repro/kernels/paged_attn.py:76"}
     # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
     sources = {"consensus_mix": "src/repro_torch/csrc/consensus_mix.cu",
                "fused_consensus_sgd":
                    "src/repro_torch/csrc/fused_consensus_sgd.cu",
-               "fused_sgd": "src/repro_torch/csrc/fused_consensus_sgd.cu"}
+               "fused_sgd": "src/repro_torch/csrc/fused_consensus_sgd.cu",
+               "paged_decode": "src/repro_torch/csrc/paged_decode.cu"}
     kernels = []
     for name, nums in numbers.items():
         kernels.append({
@@ -699,6 +1075,7 @@ def main() -> int:
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
             "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
             "max_abs_err_all_shapes": nums["max_abs_err_all_shapes"]})
+    log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,9 @@ D2D mixing carried by the hand-written CUDA kernel
 ``kernels.consensus_mix``; and TT-HF as the scale-mode sync strategy for
 the dense model family (``train.ScaleTrainer``, ``launch.train --mode
 scale``), whose fused interval ends every consensus block in the CUDA
-kernel ``kernels.fused_consensus_sgd``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+kernel ``kernels.fused_consensus_sgd``; and serving of the dense family
+(``serving``, ``launch.serve``: ring and paged caches, the wave,
+continuous and paged schedulers), whose paged decode steps run the CUDA
+kernel ``kernels.paged_decode`` once per layer. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """

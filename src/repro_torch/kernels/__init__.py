@@ -6,8 +6,9 @@ Ported, all CUDA C++ in ``csrc/``: ``consensus_mix``
 ``fused_consensus_sgd`` (:mod:`repro_torch.kernels.fused_consensus_sgd`,
 the scale path's block-end) and ``fused_sgd``
 (:mod:`repro_torch.kernels.fused_sgd`, the one-replica instance of
-``csrc/fused_consensus_sgd.cu``, unwired as in the reference). The
-other TPU kernels of ``repro/kernels/`` are still to port (ROADMAP.md,
-Queue 2). CUDA sources build at first use (:mod:`.build`), never at
+``csrc/fused_consensus_sgd.cu``, unwired as in the reference) and
+``paged_decode`` (:mod:`repro_torch.kernels.paged_decode`, the paged
+serving path's decode attention). ``ssd_scan`` of ``repro/kernels/`` is
+still to port (ROADMAP.md, Queue 2). CUDA sources build at first use (:mod:`.build`), never at
 import, so the package imports on a machine without ``nvcc``.
 """

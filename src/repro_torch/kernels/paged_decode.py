@@ -1,0 +1,168 @@
+"""Paged single-token decode attention — the Hopper kernel and its plain
+version.
+
+:func:`paged_decode` attends one query token per slot over that slot's
+pages of a shared K/V page pool: GQA (the ``G`` query heads of a kv head
+share its keys and values), scores scaled by ``hd**-0.5``, keys at
+absolute positions ``k_pos <= pos`` and, with ``window``, inside the band
+``k_pos > pos - window``. It replaces the Pallas TPU kernel
+``repro/kernels/paged_attn.py::paged_decode``: on a CUDA tensor it
+launches the hand-written kernel of ``csrc/paged_decode.cu`` (built for
+``sm_90a`` at first use by :mod:`repro_torch.kernels.build`); on a CPU
+tensor it runs :func:`paged_decode_plain`, the port of the reference's
+gather path (``repro/models/attention.py::paged_decode_attention`` with
+``use_kernel=False``). There is no fallback from one to the other: a
+CUDA tensor launches the kernel or raises.
+
+The kernel reads each live key and value row once, so it is bound by
+device memory: the bytes of the live K/V over 3.35 TB/s on an H100 SXM.
+The source note in ``csrc/paged_decode.cu`` gives the design.
+
+Page ids in ``page_map`` must lie in ``[0, num_pages)``; the kernel reads
+them as given (the plain version raises on an index out of range).
+
+``paged_decode.launches`` counts kernel launches (CPU calls do not
+count); a caller resets it to 0 before a run it wants to read.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256             # kMaxHeadDim in csrc/paged_decode.cu
+MAX_GROUP = 16                 # kMaxGroup in csrc/paged_decode.cu
+_MAX_SLOTS = 65_535            # the kernel's grid.y
+_ENTRY = {torch.float32: "paged_decode_f32",
+          torch.bfloat16: "paged_decode_bf16"}
+
+
+def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_map: torch.Tensor,
+                       pos: torch.Tensor, *, window: int = 0
+                       ) -> torch.Tensor:
+    """q: (B, K, G, hd); k_pages/v_pages: (num_pages, page_size, K, hd);
+    page_map: (B, P) int; pos: (B,) int -> (B, K, G, hd) float32.
+
+    Gathers every slot's P pages into a contiguous (B, P*ps, K, hd)
+    buffer (keys and values cast to q's dtype, as the reference) and
+    runs a masked float32 softmax. A row whose keys are all masked
+    (a sliding window past the slot's pages) takes the uniform mean of
+    its gathered values, as the reference does."""
+    B, K, G, hd = q.shape
+    ps = k_pages.shape[1]
+    P = page_map.shape[1]
+    pm = page_map.long()
+    kg = k_pages[pm].reshape(B, P * ps, K, hd).to(q.dtype)
+    vg = v_pages[pm].reshape(B, P * ps, K, hd).to(q.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", (q * hd ** -0.5).float(),
+                     kg.float())
+    k_pos = torch.arange(P * ps, device=q.device)
+    pos = pos.long()
+    valid = k_pos[None, :] <= pos[:, None]
+    if window:
+        valid = valid & (k_pos[None, :] > pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bskh->bkgh", w, vg.float())
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("paged_decode")
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k_pages, v_pages, page_map, pos) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, K, G, hd), got {tuple(q.shape)}")
+    B, K, G, hd = q.shape
+    if k_pages.ndim != 4 or tuple(k_pages.shape[2:]) != (K, hd):
+        raise ValueError(f"k_pages must be (num_pages, page_size, {K}, "
+                         f"{hd}), got {tuple(k_pages.shape)}")
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"v_pages must match k_pages' "
+                         f"{tuple(k_pages.shape)}, got {tuple(v_pages.shape)}")
+    if page_map.ndim != 2 or page_map.shape[0] != B:
+        raise ValueError(f"page_map must be ({B}, pages_per_slot), got "
+                         f"{tuple(page_map.shape)}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"pos must be ({B},), got {tuple(pos.shape)}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"q must be float32, got {q.dtype}")
+    if k_pages.dtype not in _ENTRY:
+        raise TypeError(f"the pools must be float32 or bfloat16, got "
+                        f"{k_pages.dtype}")
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"v_pages must be {k_pages.dtype} like k_pages, "
+                        f"got {v_pages.dtype}")
+    if page_map.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"page_map and pos must be int32, got "
+                        f"{page_map.dtype} and {pos.dtype}")
+    devices = {t.device for t in (q, k_pages, v_pages, page_map, pos)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must share a device, got "
+                         f"{sorted(map(str, devices))}")
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_map: torch.Tensor,
+                 pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """q: (B, K, G, hd) float32; k_pages/v_pages: (num_pages, page_size,
+    K, hd) float32 or bfloat16; page_map: (B, P) int32; pos: (B,) int32
+    -> the softmax-weighted values (B, K, G, hd) in float32 (a new
+    tensor; the caller projects).
+
+    CPU tensors take :func:`paged_decode_plain`; CUDA tensors launch the
+    kernel, which needs contiguous inputs, hd <= MAX_HEAD_DIM,
+    G <= MAX_GROUP and B <= 65,535.
+    """
+    _check(q, k_pages, v_pages, page_map, pos)
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pages, v_pages, page_map, pos,
+                                  window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode runs on cpu or cuda, not {q.device}")
+    B, K, G, hd = q.shape
+    ps, P = k_pages.shape[1], page_map.shape[1]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{G} query heads per kv head exceed the kernel's "
+                         f"{MAX_GROUP}")
+    if B > _MAX_SLOTS:
+        raise ValueError(f"{B} slots exceed the kernel's {_MAX_SLOTS}")
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, page_map,
+                                           pos)):
+        raise ValueError("paged_decode needs contiguous inputs")
+    out = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_library(), _ENTRY[k_pages.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_map.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 B, K, G, hd, ps, P, int(window), hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_decode kernel launch failed with CUDA error {err}")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0
+
+
+__all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "NEG_INF", "paged_decode",
+           "paged_decode_plain"]

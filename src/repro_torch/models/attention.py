@@ -10,8 +10,14 @@ in float32 (the reference's ``preferred_element_type``).
 Only the materialized path is ported: ``attention_block`` handles
 ``max(T, Tk) <= flash_threshold`` (2048). Longer sequences need the
 chunked online-softmax ``flash_attention``, which comes with the other
-families (ROADMAP.md, Queue 1 item 6); the KV-cache decode paths come
-with serving (item 7).
+families (ROADMAP.md, Queue 1 item 6).
+
+The decode paths of serving are here too: the ring cache
+(:func:`init_cache`, :func:`decode_attention`) and the paged cache
+(:func:`init_paged_cache`, :func:`paged_decode_attention`, whose
+attention runs in the ``paged_decode`` kernel or its plain version).
+Unlike the reference, which returns new caches, the port writes K/V
+into the cache tensors it is given, in place, and returns them.
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.common import dense_init, rope, zeros_init
+from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+from repro_torch.models.common import (
+    apply_rope, dense_init, rope, rope_angles, zeros_init)
 
 NEG_INF = -1e30
 
@@ -76,8 +84,11 @@ def _mask_block(q_pos: torch.Tensor, k_pos: torch.Tensor, mode: str,
 
 def simple_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      mode: str = "causal", window: int = 0,
-                     prefix_len=None, q_offset: int = 0) -> torch.Tensor:
-    """Materialized attention. q: (B,Tq,K,G,hd), k/v: (B,Tk,K,hd)."""
+                     prefix_len=None, q_offset: int = 0,
+                     k_len=None) -> torch.Tensor:
+    """Materialized attention. q: (B,Tq,K,G,hd), k/v: (B,Tk,K,hd).
+    ``k_len`` (an int) masks the keys at positions >= k_len (the
+    valid length of a cache)."""
     Tq, Tk = q.shape[1], k.shape[1]
     scale = q.shape[-1] ** -0.5
     # float32 scores of the working-type inputs (preferred_element_type)
@@ -87,6 +98,8 @@ def simple_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = torch.arange(Tk, device=q.device)
     keep = _mask_block(q_pos, k_pos, mode, window,
                        prefix_len if prefix_len is not None else 0)
+    if k_len is not None:                            # cache validity limit
+        keep = keep & (k_pos[None, :] < k_len)
     scores = scores.masked_fill(~keep, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
@@ -143,5 +156,157 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
     return out @ p["wo"].to(x.dtype)
 
 
-__all__ = ["NEG_INF", "attention_block", "init_attention",
-           "simple_attention"]
+# ---------------------------------------------------------------------------
+# decode path: single-token step against a KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
+               device) -> dict:
+    """Ring-cache leaves for ONE layer (the engine stacks the layers).
+    A ring buffer when the serving window is set and cache_len equals
+    it."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, cache_len, K, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, cache_len, K, hd), dtype=dtype,
+                             device=device)}
+
+
+def init_paged_cache(cfg, num_pages: int, page_size: int,
+                     dtype=torch.bfloat16, *, device) -> dict:
+    """Paged-cache leaves for ONE layer: a pool of fixed-size pages
+    shared by every slot (page 0 is the reserved dummy page)."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (num_pages, page_size, K, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def page_flat_index(page_map: torch.Tensor, pos: torch.Tensor,
+                    page_size: int) -> torch.Tensor:
+    """Each slot's write offset in the flattened pool, (B,) int64: the
+    page that holds position ``pos`` (its index clipped into the row, so
+    a retired slot's growing ``pos`` stays on its all-dummy row), times
+    the page size, plus the offset in the page."""
+    P = page_map.shape[1]
+    pos = pos.long()
+    idx = torch.clamp(torch.div(pos, page_size, rounding_mode="floor"),
+                      0, P - 1)
+    pg = page_map.gather(1, idx[:, None])[:, 0].long()
+    return pg * page_size + pos % page_size
+
+
+def _paged_scatter(kv: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                   flat: torch.Tensor) -> None:
+    """Write per-row K/V (R, K, hd) at flat page offsets (R,) int64 into
+    the (num_pages, page_size, K, hd) pools, in place. Rows routed to the
+    dummy page may share an offset; ``index_copy_`` then keeps no fixed
+    winner (on CUDA), which is harmless: nobody reads page 0 unmasked."""
+    for name, new in (("k", k_new), ("v", v_new)):
+        pool = kv[name]
+        N, ps = pool.shape[:2]
+        pool.view(N * ps, *pool.shape[2:]).index_copy_(
+            0, flat, new.to(pool.dtype))
+
+
+def rotary_angles(cfg, positions: torch.Tensor):
+    """The model's RoPE angles at ``positions`` (..., T) — made once per
+    step or chunk for every layer; None without RoPE. A decode step
+    passes ``pos[:, None]``, one new token per slot."""
+    if not cfg.rope:
+        return None
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _rotate_new_token(cfg, q, k_new, rotary):
+    """RoPE on one new token per slot with the angles of
+    :func:`rotary_angles`."""
+    if rotary is None:
+        return q, k_new
+    B = q.shape[0]
+    q = apply_rope(q.reshape(B, 1, -1, cfg.head_dim), *rotary)
+    return q.reshape(B, 1, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim), \
+        apply_rope(k_new, *rotary)
+
+
+def paged_decode_attention(p, cfg, x: torch.Tensor, cache: dict,
+                           pos: torch.Tensor, page_map: torch.Tensor, *,
+                           flat: torch.Tensor, rotary, window: int = 0,
+                           use_kernel: bool = False):
+    """One-token attention step against a PAGED cache.
+
+    x: (B, 1, d); cache: {'k','v'} (num_pages, page_size, K, hd), updated
+    in place; pos: (B,) int32 absolute positions; page_map: (B,
+    pages_per_slot) int32 — each slot's logical pages in position order
+    (dummy page 0 for unallocated entries); ``flat``: the write offsets
+    of :func:`page_flat_index` and ``rotary``: the angles of
+    :func:`rotary_angles`, both made once per step for every layer. The
+    paged cache stores FULL positions and masks a [pos-window, pos]
+    band, so sliding archs need no ring arithmetic.
+
+    Returns (out, cache). With ``use_kernel`` the attention goes through
+    the ``paged_decode`` wrapper (the CUDA kernel on a CUDA tensor, its
+    plain version on a CPU tensor); without, through the plain gather
+    path in the compute dtype.
+    """
+    B = x.shape[0]
+    k_new, v_new = _project_kv(p, cfg, x)
+    q, k_new = _rotate_new_token(cfg, _project_q(p, cfg, x), k_new, rotary)
+    # slots mid-prefill or retired carry an all-dummy page-map row, so
+    # their write lands in the page-0 sink
+    _paged_scatter(cache, k_new[:, 0], v_new[:, 0], flat)
+    if use_kernel:
+        out = paged_decode(q[:, 0].float().contiguous(), cache["k"],
+                           cache["v"], page_map, pos, window=window)
+    else:
+        out = paged_decode_plain(q[:, 0], cache["k"], cache["v"], page_map,
+                                 pos, window=window)
+    out = out.to(x.dtype).reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, *, rotary, window: int = 0):
+    """One-token attention step against a ring cache.
+
+    x: (B, 1, d); cache: {'k','v'} (B, S, K, hd), updated in place; pos:
+    int32 ``(B,)`` — the absolute position of each slot's new token;
+    ``rotary``: the angles of :func:`rotary_angles` at ``pos``. Returns
+    (out, cache).
+
+    Ring-buffer semantics when window > 0 and S == window: slot =
+    pos % window and all cache entries are valid once pos >= window.
+    Keys are stored post-RoPE (absolute rotation).
+    """
+    B = x.shape[0]
+    k_new, v_new = _project_kv(p, cfg, x)
+    q, k_new = _rotate_new_token(cfg, _project_q(p, cfg, x), k_new, rotary)
+
+    S = cache["k"].shape[1]
+    slot = pos % max(S, 1) if window > 0 else pos
+    slot = torch.clamp(slot, max=S - 1).long()       # (B,)
+    rows = torch.arange(B, device=x.device)
+    k, v = cache["k"], cache["v"]
+    k[rows, slot] = k_new[:, 0].to(k.dtype)
+    v[rows, slot] = v_new[:, 0].to(v.dtype)
+
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("btkgh,bskh->bkgts", (q * scale).float(),
+                     k.to(q.dtype).float())         # (B,K,G,1,S)
+    k_pos = torch.arange(S, device=x.device)
+    if window > 0:
+        # ring: all valid once a slot's position wraps past the window
+        valid = (k_pos[None, :] <= slot[:, None]) | (pos[:, None] >= S)
+    else:
+        valid = k_pos[None, :] <= pos[:, None]       # (B, S)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", w,
+                       v.to(q.dtype).float()).to(x.dtype)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+__all__ = ["NEG_INF", "attention_block", "decode_attention", "init_attention",
+           "init_cache", "init_paged_cache", "page_flat_index",
+           "paged_decode_attention", "rotary_angles", "simple_attention"]

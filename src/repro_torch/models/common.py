@@ -166,22 +166,36 @@ def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 # positions
 # ---------------------------------------------------------------------------
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10_000.0) -> torch.Tensor:
-    """Rotary embeddings, half-split layout with float32 angles.
-    x: (..., T, n, hd); positions: (..., T)."""
-    hd = x.shape[-1]
-    half = hd // 2
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float = 10_000.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 (cos, sin) of :func:`rope` at ``positions`` (..., T),
+    each (..., T, 1, head_dim // 2): a caller that rotates several
+    tensors at the same positions (every layer of a decode step) makes
+    them once."""
+    half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=x.device) / half
+                         device=positions.device) / half
     freq = torch.pow(theta, exps)
     ang = positions[..., :, None].float() * freq         # (..., T, half)
-    cos = torch.cos(ang)[..., :, None, :]
-    sin = torch.sin(ang)[..., :, None, :]
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x: (..., T, n, hd) by the angles of :func:`rope_angles`."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embeddings, half-split layout with float32 angles.
+    x: (..., T, n, hd); positions: (..., T)."""
+    return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +215,8 @@ def softmax_cross_entropy(logits: torch.Tensor,
 
 __all__ = [
     "Px", "apply_norm", "dense_init", "embed_init", "layernorm",
-    "norm_init", "ones_init", "params_from_jax", "rmsnorm", "rope",
+    "apply_rope", "norm_init", "ones_init", "params_from_jax", "rmsnorm",
+    "rope", "rope_angles",
     "softmax_cross_entropy",
     "split_tree", "tree_from_items", "tree_items", "tree_leaves",
     "tree_map", "zeros_init",

@@ -4,8 +4,9 @@ part.
 ``build_model(cfg)`` returns a :class:`ModelApi`. Parameters are nested
 dicts of tensors; ``abstract_params`` gives their shapes (on the
 ``meta`` device, so nothing is allocated) beside the logical-axes tree.
-The serving methods (prefill, decode, caches) come with ROADMAP.md
-Queue 1 item 7.
+The serving methods (prefill, decode, ring and paged caches) call
+:mod:`repro_torch.serving.engine`, dense kind; they update the caches
+they are given in place.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import params_from_jax, tree_map
+from repro_torch.serving import engine as serve
 
 
 @dataclass(frozen=True)
@@ -45,6 +47,50 @@ class ModelApi:
 
     def forward(self, params, batch, *, dtype=torch.bfloat16):
         return tfm.forward(params, self.cfg, batch, dtype=dtype)
+
+    # -- serving --------------------------------------------------------
+    def prefill(self, params, batch, *, dtype=torch.bfloat16,
+                cache_dtype=torch.bfloat16, serve_window=0, cache_len=None,
+                lengths=None):
+        return serve.prefill(params, self.cfg, batch, dtype=dtype,
+                             cache_dtype=cache_dtype,
+                             serve_window=serve_window, cache_len=cache_len,
+                             lengths=lengths)
+
+    def write_cache_slot(self, cache, one_cache, slot, *, pos=None,
+                         one_pos=None):
+        return serve.write_cache_slot(self.cfg, cache, one_cache, slot,
+                                      pos=pos, one_pos=one_pos)
+
+    def decode_step(self, params, token, cache, pos, *, dtype=torch.bfloat16,
+                    serve_window=0):
+        return serve.decode_step(params, self.cfg, token, cache, pos,
+                                 dtype=dtype, serve_window=serve_window)
+
+    def init_cache(self, batch, seq_len, dtype=torch.bfloat16,
+                   serve_window=0, *, device=None):
+        return serve.init_cache_tree(self.cfg, batch, seq_len, dtype,
+                                     serve_window=serve_window, device=device)
+
+    # -- paged serving --------------------------------------------------
+    def prefill_chunk(self, params, cache, tokens, start, valid, page_row,
+                      slot, *, dtype=torch.float32, serve_window=0):
+        return serve.prefill_chunk(params, self.cfg, cache, tokens, start,
+                                   valid, page_row, slot, dtype=dtype,
+                                   serve_window=serve_window)
+
+    def decode_step_paged(self, params, token, cache, pos, page_map, live,
+                          *, dtype=torch.bfloat16, serve_window=0,
+                          use_kernel=False):
+        return serve.decode_step_paged(params, self.cfg, token, cache, pos,
+                                       page_map, live, dtype=dtype,
+                                       serve_window=serve_window,
+                                       use_kernel=use_kernel)
+
+    def init_paged_cache(self, slots, num_pages, page_size,
+                         dtype=torch.bfloat16, *, device=None):
+        return serve.init_paged_cache_tree(self.cfg, slots, num_pages,
+                                           page_size, dtype, device=device)
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:

@@ -60,7 +60,11 @@ assert len(hist.global_loss) == 2
 for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.models.transformer", "repro_torch.data.tokens",
             "repro_torch.kernels.fused_consensus_sgd",
-            "repro_torch.kernels.fused_sgd"):
+            "repro_torch.kernels.fused_sgd",
+            "repro_torch.kernels.paged_decode",
+            "repro_torch.serving", "repro_torch.serving.engine",
+            "repro_torch.serving.scheduler", "repro_torch.serving.pages",
+            "repro_torch.launch.serve"):
     assert new in names, new
 from repro_torch.configs import get_arch
 from repro_torch.core.distributed import TTHFScaleConfig
@@ -72,6 +76,17 @@ st = ScaleTrainer(get_arch("qwen1.5-0.5b").reduced(d_model=64, vocab_size=64),
                                 eval_every=0, fused_interval=True),
                   device="cpu").run()
 assert st.interval == 1 and st.ledger.uplinks == 2
+import torch
+from repro_torch.models import build_model
+from repro_torch.serving import PagedContinuousScheduler, Request
+cfg = get_arch("qwen1.5-0.5b").reduced(d_model=64, vocab_size=64)
+model = build_model(cfg)
+sched = PagedContinuousScheduler(model, slots=2, max_prompt=8, max_total=12,
+                                 page_size=4, device="cpu")
+sched.submit(Request(rid=0, prompt=[1, 2, 3, 4, 5], max_new=3))
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+sched.step(params)
+assert sched.stats.decode_steps == 1 and sched.paged_kernel is False
 print(len(names))
 """
 

@@ -8,7 +8,9 @@ one. On the CPU the wrapper's contract is checked: CPU tensors take the
 plain version and do not count as launches. Tolerances are the
 reference's (``tests/test_kernels.py``): ``consensus_mix`` 1e-5 in
 float32 and 2e-2 in bfloat16; ``fused_sgd`` and ``fused_consensus_sgd``
-1e-6 in float32 and 1e-2 in bfloat16 (atol and rtol).
+1e-6 in float32 and 1e-2 in bfloat16 (atol and rtol); ``paged_decode``
+1e-5 with float32 and with bfloat16 pools (both versions read the pools
+in float32, and bf16 -> f32 is exact).
 """
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from repro_torch.kernels.consensus_mix import (
 from repro_torch.kernels.fused_consensus_sgd import (
     fused_consensus_sgd, fused_consensus_sgd_plain)
 from repro_torch.kernels.fused_sgd import fused_sgd, fused_sgd_plain
+from repro_torch.kernels.paged_decode import (
+    MAX_GROUP, MAX_HEAD_DIM, paged_decode, paged_decode_plain)
 
 SHAPES = [(1, 2, 8), (3, 5, 100), (4, 8, 700), (2, 5, 513), (25, 5, 64),
           (25, 5, 10), (2, MAX_CLUSTER_SIZE, 300)]
@@ -117,9 +121,83 @@ def test_fused_wrappers_refuse_bad_inputs_before_dispatch():
         fused_consensus_sgd(w[0], g[0], W, 0.1)
 
 
+# paged_decode: name -> (B, K, G, hd, page_size, P, num_pages, window,
+# pos); slot b's row holds pages of one random permutation, and a slot
+# with pos None takes an all-dummy row with its pos past its pages
+PAGED_CASES = {
+    # tests/test_serving_paged.py's shape, window 0 and 4
+    "reference": (2, 2, 2, 8, 4, 3, 4, 0, [5, 9]),
+    "reference-window": (2, 2, 2, 8, 4, 3, 4, 4, [5, 9]),
+    "dummy-row": (3, 2, 2, 8, 4, 3, 7, 0, [5, None, 11]),
+    "dummy-row-window": (3, 2, 2, 8, 4, 3, 7, 4, [5, None, 11]),
+    # the serve path's main shape: qwen1.5-0.5b, 8 slots, P 40, 321 pages
+    "qwen-serve": (8, 16, 1, 64, 16, 40, 321, 0,
+                   [80 * (b + 1) - 1 for b in range(8)]),
+    # gemma-2b-like MQA and starcoder2-3b-like GQA past its 4096 window
+    "gemma-mqa": (4, 1, 8, 256, 16, 8, 33, 0, [3, 60, None, 127]),
+    "starcoder-window": (2, 2, 12, 128, 16, 320, 641, 4096, [4500, 5119]),
+}
+
+
+def _paged_inputs(case, dtype, device, seed=0):
+    B, K, G, hd, ps, P, N, window, pos = PAGED_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, K, G, hd)).astype(np.float32)
+    kp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
+    vp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
+    pages = rng.permutation(np.arange(1, N))
+    page_map = np.zeros((B, P), np.int32)
+    pos_v = np.zeros((B,), np.int32)
+    for b, pb in enumerate(pos):
+        if pb is None:                   # retired: dummy row, pos grown on
+            pos_v[b] = P * ps + 7
+        else:
+            page_map[b] = pages[b * P:(b + 1) * P] if N > B * P else \
+                rng.choice(np.arange(1, N), size=P)
+            pos_v[b] = pb
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (to(q), to(kp).to(dtype), to(vp).to(dtype), to(page_map),
+            to(pos_v), window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
+    for case in ("reference-window", "dummy-row-window", "gemma-mqa"):
+        *args, window = _paged_inputs(case, dtype, "cpu")
+        before = paged_decode.launches
+        out = paged_decode(*args, window=window)
+        assert paged_decode.launches == before
+        assert out.dtype == torch.float32 and out.shape == args[0].shape
+        assert torch.equal(out, paged_decode_plain(*args, window=window))
+        assert torch.isfinite(out).all()
+
+
+def test_paged_decode_refuses_bad_inputs_before_dispatch():
+    q, kp, vp, pm, pos, _ = _paged_inputs("reference", torch.float32, "cpu")
+    with pytest.raises(TypeError, match="q must be float32"):
+        paged_decode(q.double(), kp, vp, pm, pos)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        paged_decode(q, kp.half(), vp.half(), pm, pos)
+    with pytest.raises(TypeError, match="like k_pages"):
+        paged_decode(q, kp, vp.bfloat16(), pm, pos)
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode(q, kp, vp, pm.long(), pos)
+    with pytest.raises(ValueError, match=r"\(B, K, G, hd\)"):
+        paged_decode(q[0], kp, vp, pm, pos)
+    with pytest.raises(ValueError, match="k_pages must be"):
+        paged_decode(q, kp[..., :4], vp[..., :4], pm, pos)
+    with pytest.raises(ValueError, match="v_pages must match"):
+        paged_decode(q, kp, vp[:2], pm, pos)
+    with pytest.raises(ValueError, match="page_map must be"):
+        paged_decode(q, kp, vp, pm[:1], pos)
+    with pytest.raises(ValueError, match="pos must be"):
+        paged_decode(q, kp, vp, pm, pos[:1])
+
+
 def test_build_names_the_sources():
     # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
-    assert build.sources() == ["consensus_mix", "fused_consensus_sgd"]
+    assert build.sources() == ["consensus_mix", "fused_consensus_sgd",
+                               "paged_decode"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
@@ -217,3 +295,40 @@ def test_fused_kernels_refuse_what_they_cannot_run(cuda_device):
         fused_consensus_sgd(w.half(), w.half(), W, 0.1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused_sgd(w.half(), w.half(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_decode_kernel_on_card(cuda_device, dtype, case):
+    *args, window = _paged_inputs(case, dtype, cuda_device)
+    before = paged_decode.launches
+    out = paged_decode(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(
+        out.cpu().numpy(),
+        paged_decode_plain(*args, window=window).cpu().numpy(),
+        atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_what_it_cannot_run(cuda_device):
+    q, kp, vp, pm, pos, _ = _paged_inputs("reference", torch.float32,
+                                          cuda_device)
+    B, K, _, _ = q.shape
+    big = MAX_HEAD_DIM + 1
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode(torch.zeros((B, K, 1, big), device=cuda_device),
+                     torch.zeros((4, 4, K, big), device=cuda_device),
+                     torch.zeros((4, 4, K, big), device=cuda_device), pm, pos)
+    with pytest.raises(ValueError, match="query heads"):
+        paged_decode(torch.zeros((B, K, MAX_GROUP + 1, 8),
+                                 device=cuda_device), kp, vp, pm, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode(q.transpose(1, 2).contiguous().transpose(1, 2), kp, vp,
+                     pm, pos)
+    with pytest.raises(ValueError, match="share a device"):
+        paged_decode(q, kp, vp, pm.cpu(), pos)
