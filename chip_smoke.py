@@ -5,12 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's three main paths — the paper's Algorithm 1 in
+It drives the port's four main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
 the 784-7840-10 NN), TT-HF as the scale-mode sync strategy on the
-full-size qwen1.5-0.5b (24 layers, d 1024, vocabulary 151,936), and
-paged continuous-batching serving of the same model — and holds every
-kernel of those paths against its plain PyTorch version.
+full-size qwen1.5-0.5b (24 layers, d 1024, vocabulary 151,936), paged
+continuous-batching serving of the same model, and continuous-batching
+serving of the full-size mamba2-370m (48 Mamba-2 layers, d 1024, 32 SSD
+heads of 64, state 128) — and holds every kernel of those paths against
+its plain PyTorch version.
 Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
 
@@ -33,7 +35,15 @@ caught):
              GQA past its 4096 window), f32 and bf16 pools, atol 1e-5;
              timed at the serve path's shape with its inputs rotated
              over copies larger than the L2, beside the page gather plus
-             ``scaled_dot_product_attention`` (two calls).
+             ``scaled_dot_product_attention`` (two calls). ``ssd_scan``
+             at the shapes of tests/test_kernels.py (ragged T = 130
+             included; f32 max |Δy| / max |y| < 1e-4 and the final state
+             to 1e-4; bf16 y within 1e-2 of max |y|), chunk 64 against
+             chunk 256, and at the serve path's admission (32 heads x 512
+             tokens) and the forward's (256 x 1024) shapes, f32 and bf16;
+             timed at both main shapes against its bound and its plain
+             version (no single PyTorch call computes the scan), inputs
+             rotated past the L2.
 3. slice   — ``TTHFTrainer`` on the card, kernel on: 40 steps, with the
              launch counter reset just before; then the same run through
              the ``masked_loop`` backend (same loss history, same
@@ -66,6 +76,26 @@ caught):
              prefilled slots, kernel against plain gather (atol 1e-4);
              and a reduced-qwen trace on the card against the same trace
              on the CPU (the same tokens).
+6. serve-ssm — the serve CLI's continuous scheduler on mamba2-370m at
+             full size (``launch/serve.py --arch mamba2-370m --scheduler
+             continuous --batch 8 --prompt-len 512 --gen 128 --requests
+             32 --prefix-template 128 --temperature 0``, random f32
+             weights from seed 0), with the launch counter reset just
+             before: ``ssd_scan`` once per layer and admission, held to
+             48 x the prefills of the same trace run on the CPU at
+             reduced width; the same trace with ``ssd_kernel=False``
+             (every stat equal) and through the paged scheduler with
+             chunks of 256 (first chunks through the kernel, later ones
+             through the plain scan from the carried state; the same
+             requests, prefills and tokens). Greedy tokens must equal the
+             plain run's, except at a request's first step where the
+             plain run's top two logits are within 1e-4 of its max
+             |logit| (the phase prints the margins).
+7. forward-ssm — ``ModelApi.forward`` of the full-size mamba2-370m at
+             batch 8 x 1024 tokens, f32, through the kernel against the
+             plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
+             over 48 layers); and a reduced mamba2's serve trace on the
+             card against the same trace on the CPU (the same tokens).
 
 It prints the card's name and power limit first, one JSON line with the
 kernels' numbers before the last line, and as the last line
@@ -74,8 +104,8 @@ kernels' numbers before the last line, and as the last line
 rest of the repository beside it, it exits non-zero and prints no result.
 
 ``--profile`` adds one profiled 20-step run of the sim path, one
-profiled interval of the scale path and one profiled serve trace, and
-prints the device time by kernel and the device's idle share.
+profiled interval of the scale path and one profiled trace of each serve
+path, and prints the device time by kernel and the device's idle share.
 """
 from __future__ import annotations
 
@@ -126,6 +156,20 @@ SERVE_TRACE = dict(requests=32, prompt_len=512, gen=128, seed=0,
 SERVE_SCHED = dict(slots=8, max_prompt=512, max_total=512 + 128,
                    temperature=0.0, seed=0)
 SERVE_PAGED = dict(page_size=16, prefill_chunk=256)
+# ssd_scan: (BH, T, P, S, chunk), tests/test_kernels.py's shapes, and the
+# main paths' shapes: one admission of the serve-ssm trace (32 heads, the
+# prompt padded to 512) and the forward-ssm phase (8 x 32 heads, 1024)
+SSD_TEST_SHAPES = [(1, 64, 16, 16, 16), (2, 256, 64, 128, 128),
+                   (3, 512, 64, 128, 256), (2, 130, 32, 64, 64)]
+SSD_MAIN_SHAPES = {"serve": (32, 512, 64, 128, 256),
+                   "forward": (256, 1024, 64, 128, 256)}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}     # of max |y|
+# the serve-ssm path: the serve CLI's flags
+SERVE_SSM_ARGV = ["--arch", "mamba2-370m", "--scheduler", "continuous",
+                  "--batch", "8", "--prompt-len", "512", "--gen", "128",
+                  "--requests", "32", "--prefix-template", "128",
+                  "--temperature", "0"]
+LOGIT_TOL = 1e-4                   # of max |logit|
 
 
 def log(msg: str) -> None:
@@ -803,6 +847,123 @@ def phase_paged_kernel() -> dict:
                                        "bfloat16": worst["bfloat16"]}}
 
 
+def ssd_inputs(shape, dtype, seed=0, copies=1):
+    """[(x, dt, loga, B, C)] * copies on the card, the first from one
+    numpy seed as tests/test_kernels.py makes them, the others (timing
+    copies) from torch's generator on the card."""
+    import torch
+    BH, T, P, S, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(BH, T, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(BH, T)).astype(np.float32)
+    loga = (-dt * rng.uniform(0.5, 2.0, size=(BH, 1))).astype(np.float32)
+    B = (rng.normal(size=(BH, T, S)) * 0.3).astype(np.float32)
+    C = (rng.normal(size=(BH, T, S)) * 0.3).astype(np.float32)
+    cuda = lambda a, d=dtype: torch.from_numpy(a).to("cuda", d)  # noqa
+    sets = [(cuda(x), cuda(dt, torch.float32), cuda(loga, torch.float32),
+             cuda(B), cuda(C))]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(copies - 1):
+        d = torch.rand((BH, T), generator=gen, device="cuda") * 0.099 + 1e-3
+        sets.append((
+            torch.randn((BH, T, P), generator=gen, device="cuda").to(dtype),
+            d, -d, (torch.randn((BH, T, S), generator=gen, device="cuda")
+                    * 0.3).to(dtype),
+            (torch.randn((BH, T, S), generator=gen, device="cuda")
+             * 0.3).to(dtype)))
+    return sets
+
+
+def ssd_compare(y, h, yp, hp, dt: str, what) -> tuple[float, float]:
+    """(max |y - plain|, that over max |plain|), the second held to the
+    dtype's tolerance; the float32 final state to rtol/atol 1e-4."""
+    import torch
+    assert y.dtype == yp.dtype and y.shape == yp.shape, what
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all(), what
+    err = float((y.float() - yp.float()).abs().max())
+    rel = err / (float(yp.float().abs().max()) + 1e-6)
+    assert rel < SSD_TOL[dt], (what, dt, rel)
+    assert torch.allclose(h, hp, rtol=1e-4, atol=1e-4), \
+        (what, float((h - hp).abs().max()))
+    return err, rel
+
+
+def phase_ssd_kernel() -> dict:
+    """``ssd_scan`` against its plain version at the reference's shapes,
+    chunk 64 against 256, and at the two main shapes; timed at both main
+    shapes against its bound and its plain version."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    worst = {}
+    shapes = SSD_TEST_SHAPES + list(SSD_MAIN_SHAPES.values())
+    for i, shape in enumerate(shapes):
+        chunk = shape[-1]
+        for dt in ("float32", "bfloat16"):
+            args, = ssd_inputs(shape, getattr(torch, dt), seed=i)
+            y, h = ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            yp, hp = ssd_scan_plain(*args, chunk=chunk)
+            err, rel = ssd_compare(y, h, yp, hp, dt, shape)
+            worst[dt] = max(worst.get(dt, 0.0), err)
+            log(f"[kernels] ssd_scan {shape} {dt} max_abs_err={err:.3e}, "
+                f"over max|y| {rel:.3e} (tol {SSD_TOL[dt]}), h max|diff| "
+                f"{float((h - hp).abs().max()):.3e}")
+            del args, y, h, yp, hp
+    # the state carry across chunks: chunk 64 against chunk 256
+    args, = ssd_inputs((2, 256, 32, 64, 64), torch.float32, seed=2)
+    y64, h64 = ssd_scan(*args, chunk=64)
+    y256, h256 = ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.allclose(y64, y256, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(h64, h256, rtol=1e-4, atol=1e-4)
+    log(f"[kernels] ssd_scan chunk 64 vs 256: y max|diff| "
+        f"{float((y64 - y256).abs().max()):.3e}, h max|diff| "
+        f"{float((h64 - h256).abs().max()):.3e} (rtol/atol 1e-4)")
+
+    numbers = {}
+    for name, shape in SSD_MAIN_SHAPES.items():
+        BH, T, P, S, Q = shape
+        # inputs rotated so that every launch reads them from HBM: four
+        # copies of the 26 MB serve shape, two of the 413 MB forward one
+        sets = ssd_inputs(shape, torch.float32, seed=50,
+                          copies=4 if name == "serve" else 2)
+        y, h = ssd_scan(*sets[0], chunk=Q)
+        torch.cuda.synchronize()
+        err, rel = ssd_compare(y, h, *ssd_scan_plain(*sets[0], chunk=Q),
+                               "float32", shape)
+        turn = itertools.cycle(sets)
+        ms = device_ms(lambda: ssd_scan(*next(turn), chunk=Q),
+                       iters=200 if name == "serve" else 20)
+        plain_ms = device_ms(lambda: ssd_scan_plain(*next(turn), chunk=Q),
+                             iters=20 if name == "serve" else 4, warmup=1)
+        # x and y, dt and loga, B and C (contiguous, as the model's
+        # wrapper makes them) read or written once; the final state
+        bytes_moved = 4 * (2 * BH * T * P + 2 * BH * T + 2 * BH * T * S
+                           + BH * S * P)
+        # the causal triangle of C Bᵀ and of M X (u <= t, Q(Q+1)/2
+        # entries; the kernel skips the masked half), the carried-state
+        # term and the state carry
+        flops = BH * (T // Q) * (Q * (Q + 1) * S + Q * (Q + 1) * P
+                                 + 4 * Q * S * P)
+        b_ms, b_by = bound(bytes_moved, flops)
+        log(f"[kernels] ssd_scan {name} {shape} f32: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops} FLOP at 67 TFLOP/s, {bytes_moved} B at 3.35 TB/s), "
+            f"kernel at {flops / ms / 1e9:.1f} GFLOP/s, no single PyTorch "
+            f"call computes the scan, max_abs_err {err:.3e} (over max|y| "
+            f"{rel:.3e})")
+        numbers[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        del sets, y, h
+        torch.cuda.empty_cache()
+    return dict(numbers["serve"], library_ms=None,
+                max_abs_err_all_shapes=worst,
+                at_forward_shape=numbers["forward"])
+
+
 TRACE_STATS = ("requests_done", "prefills", "decode_steps",
                "tokens_generated", "slot_steps", "live_slot_steps")
 RECORD_FIELDS = ("rid", "submit", "admit", "first_token", "retire",
@@ -997,6 +1158,238 @@ def phase_serve(profile: bool = False) -> int:
     return launches
 
 
+def record_margins(cls) -> tuple:
+    """Patch ``cls._sample`` to record, at every sampling, each emitting
+    request's top-two logit margin and max |logit| at the index of the
+    token it is about to emit: ``{(rid, index): (margin, max_abs)}``.
+    Returns (the record, a function that removes the patch)."""
+    import torch
+    record = {}
+    original = cls._sample
+
+    def sample(self, logits):
+        last = logits[:, -1].float()
+        top = torch.topk(last, 2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).cpu().numpy()
+        biggest = last.abs().amax(-1).cpu().numpy()
+        for i, r in enumerate(self.active):
+            if r is not None and not r.done and self._slot_ready(i):
+                record[(r.rid, len(r.out_tokens))] = (float(margin[i]),
+                                                      float(biggest[i]))
+        return original(self, logits)
+
+    cls._sample = sample
+    return record, lambda: setattr(cls, "_sample", original)
+
+
+def check_tokens(name: str, got: dict, ref: dict, margins: dict) -> list:
+    """Every request's greedy tokens equal the plain run's, except that a
+    request may part from it at a step where the plain run's top two
+    logits are within LOGIT_TOL of its max |logit| (after that step its
+    tokens follow other inputs and are not compared). Returns the
+    partings as (rid, index, margin / max |logit|)."""
+    partings = []
+    for rid, want in ref.items():
+        have = got[rid]
+        assert len(have) == len(want), (name, rid)
+        k = next((i for i, (a, b) in enumerate(zip(have, want)) if a != b),
+                 None)
+        if k is None:
+            continue
+        margin, biggest = margins[(rid, k)]
+        assert margin <= LOGIT_TOL * biggest, (
+            f"{name}: request {rid} diverged at token {k}, where the plain "
+            f"run's top-two margin {margin} exceeds {LOGIT_TOL} x {biggest}")
+        partings.append((rid, k, margin / biggest))
+    return partings
+
+
+def phase_serve_ssm(profile: bool = False) -> int:
+    """The serve CLI's continuous scheduler on the full-size mamba2-370m:
+    the main path (``ssd_scan`` in every admission's prefill), the plain
+    scan and the chunked paged scheduler held to it, and the trace's
+    counts held to a CPU run at reduced width. Returns ssd_scan's
+    launches in the main path's run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import ContinuousScheduler
+
+    args = serve_cli.parse_args(SERVE_SSM_ARGV)
+    cfg = get_arch(args.arch)
+    model = build_model(cfg)
+    device = torch.device("cuda")
+    params = serve_cli.init_params(model, args, device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    assert n_params == 368_285_184, n_params
+
+    def run(argv=(), **over):
+        a = serve_cli.parse_args(SERVE_SSM_ARGV + list(argv))
+        return serve_cli.run_scheduler_trace(a, cfg, model, device, params,
+                                             **over)
+
+    # the trace's counts at reduced width on the CPU (they follow from the
+    # trace, not the weights)
+    small = cfg.reduced()
+    _, cpu_stats, _, cpu_wall = serve_cli.run_scheduler_trace(
+        serve_cli.parse_args(SERVE_SSM_ARGV + ["--reduced"]), small,
+        build_model(small), torch.device("cpu"))
+    log(f"[serve-ssm] the trace on the CPU at reduced width: "
+        f"{cpu_stats.prefills} prefills, {cpu_stats.decode_steps} decode "
+        f"steps, {cpu_stats.tokens_generated} tokens ({cpu_wall:.1f} s)")
+
+    # warm-up: allocator, cuBLAS handles, the kernel's first load
+    _, st, _, wall = run(["--requests", "2", "--gen", "4"])
+    log(f"[serve-ssm] warm-up: 2 requests, {st.decode_steps} decode steps "
+        f"in {wall:.3f} s")
+
+    # the main path: the continuous scheduler with the kernel (auto-on)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = 0
+    sched, stats, arrivals, wall = run()
+    launches = ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    main = trace_stats(stats)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in sched._cache["layers"].values())
+    assert sched.ssd_kernel and stats.requests_done == 32
+    assert main == trace_stats(cpu_stats), "the trace's counts moved"
+    assert launches == cfg.num_layers * cpu_stats.prefills == 48 * 32, \
+        launches
+    assert all(len(r.out_tokens) == r.budget for _, r in arrivals)
+    log(f"[serve-ssm] mamba2-370m continuous (kernel): "
+        f"{stats.requests_done} requests, {stats.prefills} prefills, "
+        f"{stats.decode_steps} decode steps, {stats.tokens_generated} "
+        f"tokens in {wall:.3f} s = {stats.tokens_generated / wall:.1f} "
+        f"tokens/s, {stats.decode_steps / wall:.2f} decode steps/s, util "
+        f"{stats.utilization:.3f}, ssd_scan launches {launches} = "
+        f"{cfg.num_layers} x {cpu_stats.prefills} prefills of the CPU run, "
+        f"every stat and record equal to it; state cache {state_bytes} B, "
+        f"max_memory_allocated {peak} B")
+    kernel_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    del sched
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: run()[3], "serve-ssm trace (continuous)")
+
+    # the same trace through the plain scan, recording its logit margins
+    ssd_scan.launches = 0
+    margins, unpatch = record_margins(ContinuousScheduler)
+    try:
+        sched, stats, arrivals, wall2 = run(ssd_kernel=False)
+    finally:
+        unpatch()
+    assert ssd_scan.launches == 0
+    assert trace_stats(stats) == main
+    plain_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    parted = check_tokens("kernel", kernel_tokens, plain_tokens, margins)
+    closest = min(m / b for m, b in margins.values())
+    log(f"[serve-ssm] plain ssd_chunked: {wall2:.3f} s = "
+        f"{stats.tokens_generated / wall2:.1f} tokens/s (margins recorded: "
+        f"one host copy per tick), every stat and record equal to the "
+        f"kernel run; {32 - len(parted)}/32 requests with identical greedy "
+        f"tokens, partings (rid, token, margin / max|logit|) {parted}; "
+        f"smallest top-two margin of the plain run {closest:.3e} of max "
+        f"|logit| over {len(margins)} sampled tokens (tol {LOGIT_TOL})")
+    del sched
+    torch.cuda.empty_cache()
+
+    # the paged scheduler, chunks of 256: first chunks through the kernel,
+    # later ones through ssd_chunked from the carried state
+    ssd_scan.launches = 0
+    sched, stats, arrivals, wall3 = run(["--scheduler", "paged",
+                                         "--prefill-chunk", "256"])
+    chunks = [r.prefill_chunks for r in stats.records]
+    assert ssd_scan.launches == cfg.num_layers * 32, ssd_scan.launches
+    assert sum(chunks) > 32 and sched.table.num_free == sched.cache_pages - 1
+    for f in ("requests_done", "prefills", "tokens_generated"):
+        assert getattr(stats, f) == main[f], f
+    parted_paged = check_tokens(
+        "paged", {r.rid: list(r.out_tokens) for _, r in arrivals},
+        plain_tokens, margins)
+    log(f"[serve-ssm] paged, chunks of 256: {wall3:.3f} s = "
+        f"{stats.tokens_generated / wall3:.1f} tokens/s, {sum(chunks)} "
+        f"chunks ({sum(c > 1 for c in chunks)} prompts in two), "
+        f"{stats.decode_steps} decode steps, ssd_scan launches "
+        f"{ssd_scan.launches} (the first chunks), no page used; requests, "
+        f"prefills and tokens equal to the ring run; partings from the "
+        f"plain run {parted_paged}")
+    del sched, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_forward_ssm() -> None:
+    """The full-size mamba2-370m forward through the kernel against the
+    plain scan, and a reduced mamba2 serve trace on the card against the
+    CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.launch.serve import make_arrivals
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import make_scheduler, run_trace
+
+    cfg = get_arch("mamba2-370m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, size=(8, 1024))).to("cuda")
+    with torch.no_grad():
+        model.forward(params, {"tokens": toks[:, :256]}, dtype=torch.float32,
+                      use_kernel=True)                    # warm-up
+        torch.cuda.synchronize()
+        ssd_scan.launches = 0
+        t0 = time.time()
+        lk, _ = model.forward(params, {"tokens": toks}, dtype=torch.float32,
+                              use_kernel=True)
+        torch.cuda.synchronize()
+        t_kernel = time.time() - t0
+        assert ssd_scan.launches == cfg.num_layers, ssd_scan.launches
+        t0 = time.time()
+        lp, _ = model.forward(params, {"tokens": toks}, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t_plain = time.time() - t0
+    assert lk.shape == (8, 1024, cfg.padded_vocab)
+    assert torch.isfinite(lk).all()
+    err = float((lk - lp).abs().max())
+    biggest = float(lp.abs().max())
+    assert err <= 1e-4 * biggest, (err, biggest)
+    log(f"[forward-ssm] mamba2-370m forward, 8 x 1024 tokens f32, "
+        f"{cfg.num_layers} layers: kernel {t_kernel:.3f} s "
+        f"({cfg.num_layers} ssd_scan launches), plain ssd_chunked "
+        f"{t_plain:.3f} s; logits max "
+        f"|kernel - plain| {err:.3e}, max |logit| {biggest:.3f} (tol "
+        f"{1e-4 * biggest:.3e})")
+    del lk, lp, params
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a reduced mamba2, the same weights and trace
+    small = cfg.reduced()
+    sm = build_model(small)
+    w_cpu = sm.init(torch.Generator().manual_seed(1), "cpu")
+    w_gpu = tree_map(lambda t: t.to("cuda"), w_cpu)
+    trace = dict(requests=8, prompt_len=64, gen=16, seed=1,
+                 prefix_template=20, arrival_gap=2.0)
+    outs = {}
+    for dev, w in (("cuda", w_gpu), ("cpu", w_cpu)):
+        sched = make_scheduler("continuous", sm, slots=4, max_prompt=64,
+                               max_total=80, temperature=0.0, device=dev)
+        arrivals = make_arrivals(small, **trace)
+        stats = run_trace(sched, w, arrivals)
+        outs[dev] = ([r.out_tokens for _, r in arrivals], trace_stats(stats))
+    assert outs["cuda"] == outs["cpu"]
+    log(f"[forward-ssm] reduced mamba2 continuous trace on cuda (kernel) vs "
+        f"cpu (plain): the same tokens for all {trace['requests']} requests "
+        f"and the same stats ({outs['cpu'][1]['decode_steps']} decode "
+        f"steps)")
+
+
 def profile_main_path(fn, label: str) -> None:
     """Device time by kernel and the device's busy share over one run
     of a main path (torch.profiler, CUDA activity only: recording every
@@ -1049,32 +1442,41 @@ def main() -> int:
     numbers = {"consensus_mix": timed("kernels", phase_kernels),
                **timed("fused kernels", phase_fused_kernels)}
     numbers["paged_decode"] = timed("paged kernel", phase_paged_kernel)
+    numbers["ssd_scan"] = timed("ssd kernel", phase_ssd_kernel)
     launches = {"consensus_mix": timed("slice", phase_slice,
                                        profile=profile),
                 **timed("scale", phase_scale, profile=profile),
                 "paged_decode": timed("serve", phase_serve,
-                                      profile=profile)}
+                                      profile=profile),
+                "ssd_scan": timed("serve-ssm", phase_serve_ssm,
+                                  profile=profile)}
+    timed("forward-ssm", phase_forward_ssm)
     replaces = {"consensus_mix": "src/repro/kernels/consensus_mix.py:44",
                 "fused_consensus_sgd":
                     "src/repro/kernels/fused_consensus_sgd.py:52",
                 "fused_sgd": "src/repro/kernels/fused_sgd.py:37",
-                "paged_decode": "src/repro/kernels/paged_attn.py:76"}
+                "paged_decode": "src/repro/kernels/paged_attn.py:76",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
     # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
     sources = {"consensus_mix": "src/repro_torch/csrc/consensus_mix.cu",
                "fused_consensus_sgd":
                    "src/repro_torch/csrc/fused_consensus_sgd.cu",
                "fused_sgd": "src/repro_torch/csrc/fused_consensus_sgd.cu",
-               "paged_decode": "src/repro_torch/csrc/paged_decode.cu"}
+               "paged_decode": "src/repro_torch/csrc/paged_decode.cu",
+               "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
     kernels = []
     for name, nums in numbers.items():
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "on_main_path": name != "fused_sgd",
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
             "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
-            "max_abs_err_all_shapes": nums["max_abs_err_all_shapes"]})
+            "max_abs_err_all_shapes": nums["max_abs_err_all_shapes"]}
+        if "at_forward_shape" in nums:
+            entry["at_forward_shape"] = nums["at_forward_shape"]
+        kernels.append(entry)
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ Ported, all CUDA C++ in ``csrc/``: ``consensus_mix``
 ``fused_consensus_sgd`` (:mod:`repro_torch.kernels.fused_consensus_sgd`,
 the scale path's block-end) and ``fused_sgd``
 (:mod:`repro_torch.kernels.fused_sgd`, the one-replica instance of
-``csrc/fused_consensus_sgd.cu``, unwired as in the reference) and
+``csrc/fused_consensus_sgd.cu``, unwired as in the reference),
 ``paged_decode`` (:mod:`repro_torch.kernels.paged_decode`, the paged
-serving path's decode attention). ``ssd_scan`` of ``repro/kernels/`` is
-still to port (ROADMAP.md, Queue 2). CUDA sources build at first use (:mod:`.build`), never at
-import, so the package imports on a machine without ``nvcc``.
+serving path's decode attention) and ``ssd_scan``
+(:mod:`repro_torch.kernels.ssd_scan`, the Mamba-2 SSD scan of the ssm
+kind's prefills): all five TPU kernels of ``repro/kernels/``. CUDA
+sources build at first use (:mod:`.build`), never at import, so the
+package imports on a machine without ``nvcc``.
 """

@@ -11,17 +11,27 @@ lines. Four modes:
                 --page-size/--cache-pages/--prefill-chunk, exercise
                 prefix sharing with --prefix-template
 
+The dense kind (qwen1.5-0.5b, the default ``--arch``, and the other
+attention archs) and the ssm kind (``--arch mamba2-370m``, served from
+its per-slot state; on the card every prefill scan from a zero state
+runs the ``ssd_scan`` kernel) in all four modes.
+
 Examples:
   python -m repro_torch.launch.serve --scheduler paged --requests 32 \
       --batch 8 --prompt-len 512 --gen 128 --prefill-chunk 256 \
       --prefix-template 128 --temperature 0     # full size, on the card
+  python -m repro_torch.launch.serve --arch mamba2-370m \
+      --scheduler continuous --batch 8 --prompt-len 512 --gen 128 \
+      --requests 32 --prefix-template 128 --temperature 0   # on the card
   python -m repro_torch.launch.serve --reduced --scheduler paged \
       --temperature 0 --device cpu
+  python -m repro_torch.launch.serve --arch mamba2-370m --reduced \
+      --batch 4 --prompt-len 64 --gen 16 --device cpu
 
-The dense kind only; other ``--arch`` kinds raise (ROADMAP.md Queue 1
-item 6). Not ported yet, and refused with the ROADMAP.md item that
-brings them: ``--mesh`` and ``--host-devices`` (Queue 1 item 8);
-``--trace-dir`` and ``--profile`` (item 5).
+Other ``--arch`` kinds raise (ROADMAP.md Queue 1 item 6). Not ported
+yet, and refused with the ROADMAP.md item that brings them: ``--mesh``
+and ``--host-devices`` (Queue 1 item 8); ``--trace-dir`` and
+``--profile`` (item 5).
 """
 from __future__ import annotations
 
@@ -62,7 +72,18 @@ def make_arrivals(cfg, *, requests: int, prompt_len: int, gen: int,
     return arrivals
 
 
-def _run_scheduler(args, cfg, model, device):
+def init_params(model, args, device):
+    """The model's random weights from ``--seed``."""
+    import torch
+    return model.init(torch.Generator(device=device).manual_seed(args.seed),
+                      device)
+
+
+def run_scheduler_trace(args, cfg, model, device, params=None, **over):
+    """Build the scheduler the flags name (``over`` adds or replaces its
+    keyword arguments, e.g. ``ssd_kernel=False``) and drive the arrival
+    trace through it. Returns (scheduler, stats, arrivals, seconds of
+    the trace, ending in a device sync)."""
     import torch
     from repro_torch.serving import make_scheduler, run_trace
 
@@ -78,19 +99,25 @@ def _run_scheduler(args, cfg, model, device):
             kw["cache_pages"] = args.cache_pages
         if args.prefill_chunk:
             kw["prefill_chunk"] = args.prefill_chunk
-    sched = make_scheduler(args.scheduler, model, **kw)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
-                        device)
+    sched = make_scheduler(args.scheduler, model, **{**kw, **over})
+    if params is None:
+        params = init_params(model, args, device)
     arrivals = make_arrivals(cfg, requests=args.requests,
                              prompt_len=args.prompt_len, gen=args.gen,
                              seed=args.seed,
                              prefix_template=args.prefix_template,
                              arrival_gap=args.arrival_gap)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     t0 = time.time()
     stats = run_trace(sched, params, arrivals)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    dt = time.time() - t0
+    return sched, stats, arrivals, time.time() - t0
+
+
+def _run_scheduler(args, cfg, model, device):
+    sched, stats, _, dt = run_scheduler_trace(args, cfg, model, device)
     print(f"arch={cfg.name} scheduler={args.scheduler} slots={args.batch} "
           f"requests={args.requests} devices=1")
     print(f"done={stats.requests_done} prefills={stats.prefills} "
@@ -120,8 +147,7 @@ def _run_direct(args, cfg, model, device):
     import torch
     from repro_torch.serving import sample_tokens
 
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
-                        device)
+    params = init_params(model, args, device)
     B, T = args.batch, args.prompt_len
     tokens = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab_size, size=(B, T))
@@ -135,7 +161,8 @@ def _run_direct(args, cfg, model, device):
     t0 = time.time()
     logits, cache, pos = model.prefill(
         params, {"tokens": torch.as_tensor(tokens, device=device)},
-        dtype=torch.float32, cache_dtype=torch.float32, cache_len=total)
+        dtype=torch.float32, cache_dtype=torch.float32, cache_len=total,
+        use_kernel=device.type == "cuda")
     sync()
     t_prefill = time.time() - t0
     out_tokens = []
@@ -157,7 +184,7 @@ def _run_direct(args, cfg, model, device):
     return 0
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -201,8 +228,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; the run "
                          "fails without one unless 'cpu' is given)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.mesh or args.host_devices:
         raise NotImplementedError(
             "--mesh/--host-devices are not ported yet (ROADMAP.md Queue 1 "

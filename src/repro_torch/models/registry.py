@@ -5,8 +5,10 @@ part.
 dicts of tensors; ``abstract_params`` gives their shapes (on the
 ``meta`` device, so nothing is allocated) beside the logical-axes tree.
 The serving methods (prefill, decode, ring and paged caches) call
-:mod:`repro_torch.serving.engine`, dense kind; they update the caches
-they are given in place.
+:mod:`repro_torch.serving.engine`, dense and ssm kinds; they update
+the caches they are given in place. ``use_kernel`` on ``forward``,
+``loss``, ``prefill`` and ``prefill_chunk`` sends the ssm kind's scans
+from a zero state through the ``ssd_scan`` kernel (forward only).
 """
 from __future__ import annotations
 
@@ -42,20 +44,23 @@ class ModelApi:
         return tree_map(lambda x: x.to(dtype), params), axes
 
     # -- training -------------------------------------------------------
-    def loss(self, params, batch, *, dtype=torch.bfloat16):
-        return tfm.loss_fn(params, self.cfg, batch, dtype=dtype)
+    def loss(self, params, batch, *, dtype=torch.bfloat16, use_kernel=False):
+        return tfm.loss_fn(params, self.cfg, batch, dtype=dtype,
+                           use_kernel=use_kernel)
 
-    def forward(self, params, batch, *, dtype=torch.bfloat16):
-        return tfm.forward(params, self.cfg, batch, dtype=dtype)
+    def forward(self, params, batch, *, dtype=torch.bfloat16,
+                use_kernel=False):
+        return tfm.forward(params, self.cfg, batch, dtype=dtype,
+                           use_kernel=use_kernel)
 
     # -- serving --------------------------------------------------------
     def prefill(self, params, batch, *, dtype=torch.bfloat16,
                 cache_dtype=torch.bfloat16, serve_window=0, cache_len=None,
-                lengths=None):
+                lengths=None, use_kernel=False):
         return serve.prefill(params, self.cfg, batch, dtype=dtype,
                              cache_dtype=cache_dtype,
                              serve_window=serve_window, cache_len=cache_len,
-                             lengths=lengths)
+                             lengths=lengths, use_kernel=use_kernel)
 
     def write_cache_slot(self, cache, one_cache, slot, *, pos=None,
                          one_pos=None):
@@ -74,10 +79,12 @@ class ModelApi:
 
     # -- paged serving --------------------------------------------------
     def prefill_chunk(self, params, cache, tokens, start, valid, page_row,
-                      slot, *, dtype=torch.float32, serve_window=0):
+                      slot, *, dtype=torch.float32, serve_window=0,
+                      use_kernel=False):
         return serve.prefill_chunk(params, self.cfg, cache, tokens, start,
                                    valid, page_row, slot, dtype=dtype,
-                                   serve_window=serve_window)
+                                   serve_window=serve_window,
+                                   use_kernel=use_kernel)
 
     def decode_step_paged(self, params, token, cache, pos, page_map, live,
                           *, dtype=torch.bfloat16, serve_window=0,

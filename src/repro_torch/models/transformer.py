@@ -1,4 +1,4 @@
-"""The dense transformer stack — the port of the ``dense`` kind of
+"""The model stack — the port of the ``dense`` and ``ssm`` kinds of
 ``repro/models/transformer.py``.
 
 Per-layer parameters stay stacked on a leading ``layers`` axis, as in
@@ -8,8 +8,11 @@ over that axis (the reference's ``lax.scan``). The reference's
 activation rematerialization (``remat``) changes no number; the port
 leaves it out and takes no ``remat`` option (ROADMAP.md Queue 1 item 6).
 
-The other kinds (moe, ssm, hybrid, vlm, encdec, audio) raise
-``NotImplementedError``: they come with ROADMAP.md Queue 1 item 6.
+The ssm kind (Mamba-2, :mod:`repro_torch.models.ssm`) takes
+``use_kernel``, the reference's ``use_pallas``: its scans through the
+forward-only ``ssd_scan`` kernel. The other kinds (moe, hybrid, vlm,
+encdec, audio) raise ``NotImplementedError``: they come with ROADMAP.md
+Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -20,16 +23,21 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
     Px, apply_norm, embed_init, norm_init, softmax_cross_entropy,
     split_tree, tree_from_items, tree_items)
 
 
-def _require_dense(cfg) -> None:
-    if cfg.kind != "dense":
+PORTED_KINDS = ("dense", "ssm")
+
+
+def require_ported(cfg) -> None:
+    if cfg.kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense kind only; the {cfg.kind!r} "
-            "kind is not ported yet (ROADMAP.md Queue 1 item 6)")
+            f"{cfg.name}: the port runs the {' and '.join(PORTED_KINDS)} "
+            f"kinds; the {cfg.kind!r} kind is not ported yet (ROADMAP.md "
+            "Queue 1 item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +64,17 @@ def apply_dense_layer(p, cfg, x: torch.Tensor, *, mode: str = "causal",
     return x + mlpm.apply_mlp(p["mlp"], cfg, h)
 
 
+def init_ssm_layer(gen, cfg, *, device) -> dict:
+    return {"ln": norm_init(cfg, cfg.d_model, device=device),
+            "ssm": ssmm.init_ssm(gen, cfg, device=device)}
+
+
+def apply_ssm_layer(p, cfg, x: torch.Tensor, *,
+                    use_kernel: bool = False) -> torch.Tensor:
+    return x + ssmm.apply_ssm(p["ssm"], cfg, apply_norm(cfg, p["ln"], x),
+                              use_kernel=use_kernel)
+
+
 # ---------------------------------------------------------------------------
 # stack init
 # ---------------------------------------------------------------------------
@@ -78,7 +97,7 @@ def _stack(init_one: Callable[[], dict], n: int) -> dict:
 
 def init_model(gen, cfg, *, device) -> dict:
     """Full parameter tree (Px leaves), float32."""
-    _require_dense(cfg)
+    require_ported(cfg)
     V = cfg.padded_vocab
     p: dict[str, Any] = {
         "embed": embed_init(gen, V, cfg.d_model, ("vocab", "embed_nomodel"),
@@ -88,7 +107,8 @@ def init_model(gen, cfg, *, device) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, V, cfg.d_model,
                                   ("vocab", "embed_nomodel"), device=device)
-    p["layers"] = _stack(lambda: init_dense_layer(gen, cfg, device=device),
+    init_layer = init_ssm_layer if cfg.kind == "ssm" else init_dense_layer
+    p["layers"] = _stack(lambda: init_layer(gen, cfg, device=device),
                          cfg.num_layers)
     return p
 
@@ -126,22 +146,26 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
                             zip(items, slices)) for i in range(n)]
 
 
-def forward(p, cfg, batch, *, dtype=torch.bfloat16):
+def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
     """Full-sequence forward -> (logits, aux_losses).
-    batch: {"tokens": (B, T) int}."""
-    _require_dense(cfg)
+    batch: {"tokens": (B, T) int}. ``use_kernel`` (ssm kind): the scans
+    through the forward-only ``ssd_scan`` kernel."""
+    require_ported(cfg)
     x = _embed_tokens(p, cfg, batch["tokens"], dtype)
     mode, window = "causal", 0
     if cfg.sliding_window:
         mode, window = "sliding", cfg.sliding_window
     for lp in _unstack(p["layers"], cfg.num_layers):
-        x = apply_dense_layer(lp, cfg, x, mode=mode, window=window)
+        if cfg.kind == "ssm":
+            x = apply_ssm_layer(lp, cfg, x, use_kernel=use_kernel)
+        else:
+            x = apply_dense_layer(lp, cfg, x, mode=mode, window=window)
     x = apply_norm(cfg, p["ln_final"], x)
     return _unembed(p, cfg, x), {}
 
 
-def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16):
-    logits, _ = forward(p, cfg, batch, dtype=dtype)
+def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
+    logits, _ = forward(p, cfg, batch, dtype=dtype, use_kernel=use_kernel)
     return softmax_cross_entropy(logits, batch["labels"])
 
 
@@ -150,5 +174,6 @@ def init_tree(gen, cfg, *, device) -> tuple[dict, dict]:
     return split_tree(init_model(gen, cfg, device=device))
 
 
-__all__ = ["apply_dense_layer", "forward", "init_dense_layer",
-           "init_model", "init_tree", "loss_fn"]
+__all__ = ["PORTED_KINDS", "apply_dense_layer", "apply_ssm_layer",
+           "forward", "init_dense_layer", "init_model", "init_ssm_layer",
+           "init_tree", "loss_fn", "require_ported"]

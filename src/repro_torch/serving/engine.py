@@ -1,6 +1,7 @@
-"""Serving runtime for the dense kind — the port of
-``repro/serving/engine.py``: KV caches, prefill, single-token decode,
-and the paged cache's chunked prefill and page-map decode.
+"""Serving runtime for the dense and ssm kinds — the port of
+``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
+single-token decode, and the paged cache's chunked prefill and page-map
+decode.
 
 Cache layout: one dict per model whose leaves carry a leading ``layers``
 axis, as in the reference. Sliding-window archs (and the serving-window
@@ -8,7 +9,10 @@ variant of full-attention archs) keep a **ring buffer** of ``window``
 positions in the ring cache: slot = pos % window, keys stored post-RoPE.
 The paged cache stores attention K/V as a page pool ``(layers,
 num_pages, page_size, K, hd)`` shared by every slot (page 0 is the dummy
-sink) and masks a [pos - window, pos] band instead.
+sink) and masks a [pos - window, pos] band instead. The ssm kind keeps
+per-slot recurrent state in both caches (``h`` (layers, slots, H, S, P)
+float32 and the conv contexts ``conv_x``/``conv_B``/``conv_C``) and no
+pages.
 
 The reference threads the cache through ``lax.scan`` and returns a new
 one from every step. The port walks the layers with a Python loop over
@@ -19,10 +23,14 @@ place and returns it. Chunk offsets, valid counts and slot indices are
 Python ints (the reference traced them for one jit signature; eager
 torch needs none, and a host int costs no device sync).
 
-Only the dense kind is ported; the other kinds raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 6. Prefill up to
-2048 tokens (the materialized attention; the chunked flash path comes
-with item 6).
+The dense and ssm kinds are ported; the other kinds raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 6. A dense
+prefill takes up to 2048 tokens (the materialized attention; the chunked
+flash path comes with item 6); an ssm prefill has no such limit.
+``use_kernel`` on :func:`prefill` and :func:`prefill_chunk` sends every
+SSD scan that starts from a zero state (a one-shot prefill, a prompt's
+first chunk) through the ``ssd_scan`` kernel; a later chunk carries its
+slot's state and takes the plain ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -32,20 +40,16 @@ import torch
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import apply_norm, apply_rope
-from repro_torch.models.transformer import _embed_tokens, _unembed, _unstack
+from repro_torch.models.transformer import (
+    _embed_tokens, _unembed, _unstack, require_ported)
 
 # the kinds the paged design serves (the reference's); the port runs dense
+# and ssm
 PAGED_KINDS = ("dense", "moe", "ssm", "hybrid")
 _MAX_PREFILL = 2048            # the materialized attention's limit
-
-
-def _require_dense(cfg) -> None:
-    if cfg.kind != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense kind only; the "
-            f"{cfg.kind!r} kind is not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
+_CONV_LEAVES = ("conv_x", "conv_B", "conv_C")
 
 
 def _require_paged(cfg) -> None:
@@ -53,7 +57,7 @@ def _require_paged(cfg) -> None:
         raise ValueError(
             f"paged serving is token-only; arch kind {cfg.kind!r} is "
             "not served by the request schedulers")
-    _require_dense(cfg)
+    require_ported(cfg)
 
 
 def _mode_window(cfg, serve_window: int) -> tuple[str, int]:
@@ -99,13 +103,17 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                     serve_window: int = 0, *, device: DeviceLike = None
                     ) -> dict:
     """Ring-cache tree for the whole model, every layer stacked:
-    ``{"layers": {"k", "v"}}`` of ``(layers, batch, S, K, hd)``, on
+    ``{"layers": {"k", "v"}}`` of ``(layers, batch, S, K, hd)`` (ssm:
+    ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state), on
     ``device`` (default: the CUDA device)."""
-    _require_dense(cfg)
-    S = cache_len_for(cfg, seq_len, serve_window)
-    return _stacked(attn.init_cache(cfg, batch, S, dtype,
-                                    device=resolve_device(device)),
-                    cfg.num_layers)
+    require_ported(cfg)
+    device = resolve_device(device)
+    if cfg.kind == "ssm":
+        one = ssmm.init_ssm_cache(cfg, batch, dtype, device=device)
+    else:
+        S = cache_len_for(cfg, seq_len, serve_window)
+        one = attn.init_cache(cfg, batch, S, dtype, device=device)
+    return _stacked(one, cfg.num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +184,46 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
     return x
 
 
+def _conv_context(pre: torch.Tensor, n, K: int, state0=None
+                  ) -> torch.Tensor:
+    """The K-1 conv inputs ending before position ``n`` of the sequence
+    ``[state0 | pre]`` (zeros for ``state0`` if None): the trailing
+    context a causal conv continues from after ``n`` of ``pre``'s tokens.
+    ``n``: a Python int, or a (B,) tensor of per-row lengths."""
+    B, _, D = pre.shape
+    head = (torch.zeros((B, K - 1, D), dtype=pre.dtype, device=pre.device)
+            if state0 is None else state0.to(pre.dtype))
+    xp = torch.cat([head, pre], dim=1)
+    if isinstance(n, int):
+        return xp[:, n:n + K - 1]
+    idx = n.long()[:, None] + torch.arange(K - 1, device=pre.device)
+    return torch.gather(xp, 1, idx[..., None].expand(B, K - 1, D))
+
+
+def _prefill_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, lengths=None,
+                       use_kernel: bool = False) -> torch.Tensor:
+    """SSM layer forward that also writes its state slice ``c`` in place:
+    the SSD state at each row's last valid token (dt = 0 on the
+    right-padded rows freezes it) and the conv contexts there."""
+    B, T, _ = x.shape
+    keep = None
+    if lengths is not None:
+        keep = (torch.arange(T, device=x.device)[None, :]
+                < lengths[:, None])[..., None]
+    out, h_fin, pre = ssmm.ssm_sequence(
+        lp["ssm"], cfg, apply_norm(cfg, lp["ln"], x), keep=keep,
+        use_kernel=use_kernel)
+    n = T if lengths is None else lengths
+    c["h"].copy_(h_fin)
+    for name, v in zip(_CONV_LEAVES, pre):
+        c[name].copy_(_conv_context(v, n, cfg.ssm_conv_width))
+    return x + out
+
+
 def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
             cache_dtype=torch.bfloat16, serve_window: int = 0,
-            cache_len: int | None = None, lengths=None):
+            cache_len: int | None = None, lengths=None,
+            use_kernel: bool = False):
     """Process the full prompt; return (last-token logits, cache, pos).
 
     batch: {"tokens": (B, T) int tensor on the parameters' device}.
@@ -191,11 +236,14 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
     pad positions never enter the KV cache. The returned logits are
     taken at each row's last valid token and ``pos`` is a per-slot (B,)
     int32 vector (a 0-d int32 tensor when ``lengths`` is None).
+
+    ``use_kernel`` (ssm kind): the SSD scans through the ``ssd_scan``
+    kernel, one launch per layer.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
-    if T > _MAX_PREFILL:
+    if cfg.kind != "ssm" and T > _MAX_PREFILL:
         raise NotImplementedError(
             f"a {T}-token prefill needs the chunked flash_attention, which "
             "is not ported yet (ROADMAP.md Queue 1 item 6)")
@@ -204,13 +252,18 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=device).reshape(B)
     x = _embed_tokens(p, cfg, tokens, dtype)
-    mode, window = _mode_window(cfg, serve_window)
     cache = init_cache_tree(cfg, B, max(cache_len or 0, T), cache_dtype,
                             serve_window, device=device)
-    rotary = attn.rotary_angles(cfg, torch.arange(T, device=device))
-    for lp, c in _layers(cfg, p, cache):
-        x = _prefill_attn_layer(lp, cfg, x, c, mode=mode, window=window,
-                                rotary=rotary, lengths=lengths)
+    if cfg.kind == "ssm":
+        for lp, c in _layers(cfg, p, cache):
+            x = _prefill_ssm_layer(lp, cfg, x, c, lengths=lengths,
+                                   use_kernel=use_kernel)
+    else:
+        mode, window = _mode_window(cfg, serve_window)
+        rotary = attn.rotary_angles(cfg, torch.arange(T, device=device))
+        for lp, c in _layers(cfg, p, cache):
+            x = _prefill_attn_layer(lp, cfg, x, c, mode=mode, window=window,
+                                    rotary=rotary, lengths=lengths)
     x = apply_norm(cfg, p["ln_final"], x)
     if lengths is None:
         logits = _unembed(p, cfg, x[:, -1:])
@@ -225,6 +278,23 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 # decode step (ring cache)
 # ---------------------------------------------------------------------------
+
+def _ssm_decode_layers(p, cfg, x: torch.Tensor, cache: dict, live=None):
+    """The ssm decode stack, every layer's state updated in place; with
+    ``live`` (B,) bool, lanes that are not live keep their state (a slot
+    mid-prefill or retired must not have its carried state trampled)."""
+    for lp, c in _layers(cfg, p, cache):
+        y, new = ssmm.decode_ssm(lp["ssm"], cfg,
+                                 apply_norm(cfg, lp["ln"], x), c)
+        for name, v in new.items():
+            if live is not None:
+                v = torch.where(live.reshape((-1,) + (1,) * (v.ndim - 1)),
+                                v, c[name])
+            c[name].copy_(v)
+        x = x + y
+    x = apply_norm(cfg, p["ln_final"], x)
+    return _unembed(p, cfg, x)
+
 
 def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend):
     """The dense decode stack: ``attend(layer attn params, normed x,
@@ -247,8 +317,10 @@ def decode_step(p, cfg, token: torch.Tensor, cache: dict, pos, *,
     aligned) or a ``(B,)`` vector of per-slot positions (continuous
     batching). Returns (logits, cache).
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     x = _embed_tokens(p, cfg, token, dtype)
+    if cfg.kind == "ssm":
+        return _ssm_decode_layers(p, cfg, x, cache), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1).expand(token.shape[0])
     w = effective_window(cfg, serve_window)
@@ -272,12 +344,13 @@ def write_cache_slot(cfg, cache: dict, one_cache: dict, slot: int, *,
     in place.
 
     ``one_cache`` comes from a batch-1 :func:`prefill` with the same
-    ``cache_len``/``serve_window`` as the live ``cache``; every leaf is
-    copied along its batch axis (axis 1, after ``layers``). Optionally
-    also writes ``one_pos`` (0-d or (1,)) into the per-slot ``pos``
+    ``cache_len``/``serve_window`` as the live ``cache``; every leaf
+    (K/V, or the ssm state and conv contexts) is copied along its batch
+    axis (axis 1, after ``layers``), cast to the live leaf's dtype.
+    Optionally also writes ``one_pos`` (0-d or (1,)) into the per-slot ``pos``
     vector, in place. Returns ``cache`` (and ``pos`` when given).
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     for name, dst in cache["layers"].items():
         dst[:, slot:slot + 1].copy_(one_cache["layers"][name])
     if pos is None:
@@ -297,12 +370,17 @@ def init_paged_cache_tree(cfg, slots: int, num_pages: int, page_size: int,
     """Paged-cache tree: attention K/V leaves become a page pool
     ``(layers, num_pages, page_size, K, hd)`` shared by all slots (page 0
     reserved as the dummy sink), on ``device`` (default: the CUDA
-    device). ``slots`` sizes the per-slot recurrent state of the kinds
-    that have one, none of which is ported yet."""
+    device). ``slots`` sizes the per-slot recurrent state of the ssm
+    kind, which has no pages: ``{"layers": {"h", "conv_x", "conv_B",
+    "conv_C"}}`` with ``slots`` lanes."""
     _require_paged(cfg)
-    return _stacked(attn.init_paged_cache(cfg, num_pages, page_size, dtype,
-                                          device=resolve_device(device)),
-                    cfg.num_layers)
+    device = resolve_device(device)
+    if cfg.kind == "ssm":
+        one = ssmm.init_ssm_cache(cfg, slots, dtype, device=device)
+    else:
+        one = attn.init_paged_cache(cfg, num_pages, page_size, dtype,
+                                    device=device)
+    return _stacked(one, cfg.num_layers)
 
 
 def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
@@ -333,9 +411,33 @@ def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
     return x + mlpm.apply_mlp(lp["mlp"], cfg, h)
 
 
+def _chunk_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
+                     start: int, valid: int,
+                     use_kernel: bool = False) -> torch.Tensor:
+    """One SSM layer over a prefill chunk, carrying the slot's state
+    across chunks: the conv contexts and the SSD ``h0`` are read from (and
+    written back to) lane ``slot`` of the cache leaves; ``start == 0``
+    starts fresh, and only a fresh chunk's scan can take the kernel."""
+    C = x.shape[1]
+    lane = slice(slot, slot + 1)
+    fresh = start == 0
+    conv0 = None if fresh else tuple(c[k][lane] for k in _CONV_LEAVES)
+    # dt = 0 freezes the recurrence on pad rows (the same trick as the
+    # mixed-length one-shot prefill), so h_fin is the state at valid-1
+    keep = (torch.arange(C, device=x.device) < valid)[None, :, None]
+    out, h_fin, pre = ssmm.ssm_sequence(
+        lp["ssm"], cfg, apply_norm(cfg, lp["ln"], x), conv0=conv0,
+        keep=keep, h0=None if fresh else c["h"][lane],
+        use_kernel=use_kernel and fresh)
+    c["h"][lane].copy_(h_fin)
+    for name, v, v0 in zip(_CONV_LEAVES, pre, conv0 or (None,) * 3):
+        c[name][lane].copy_(_conv_context(v, valid, cfg.ssm_conv_width, v0))
+    return x + out
+
+
 def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
                   valid: int, page_row, slot: int, *, dtype=torch.float32,
-                  serve_window: int = 0):
+                  serve_window: int = 0, use_kernel: bool = False):
     """Process ONE page_size-multiple chunk of a prompt into the paged
     cache (chunked prefill), in place.
 
@@ -343,9 +445,11 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
     chunk's absolute offset (a page_size multiple — or the shared-prefix
     length when earlier pages came from the prefix trie); valid: the
     number of real tokens in the chunk; page_row: (pages_per_slot,) the
-    slot's page ids, a host array; slot: the recurrent-state lane (no
-    ported kind has one). One function serves single-shot prefill
-    (C >= prompt length) and streamed long prompts alike.
+    slot's page ids, a host array (unused by the ssm kind, which has no
+    pages); slot: the recurrent-state lane of the ssm kind. One function
+    serves single-shot prefill (C >= prompt length) and streamed long
+    prompts alike. ``use_kernel`` (ssm kind): a chunk at ``start == 0``
+    scans through the ``ssd_scan`` kernel, one launch per layer.
 
     Returns (cache, logits at token ``start + valid - 1``). The caller
     flips the slot live only after the LAST chunk — until then the
@@ -354,6 +458,13 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
     """
     _require_paged(cfg)
     start, valid = int(start), int(valid)
+    if cfg.kind == "ssm":
+        x = _embed_tokens(p, cfg, torch.as_tensor(
+            tokens, device=cache["layers"]["h"].device), dtype)
+        for lp, c in _layers(cfg, p, cache):
+            x = _chunk_ssm_layer(lp, cfg, x, c, slot=int(slot), start=start,
+                                 valid=valid, use_kernel=use_kernel)
+        return cache, _last_logits(p, cfg, x, valid)
     C = tokens.shape[1]
     device = cache["layers"]["k"].device
     ps = cache["layers"]["k"].shape[2]
@@ -373,9 +484,14 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
         x = _chunk_attn_layer(lp, cfg, x, c, mode=mode, window=window,
                               start=start, valid=valid, flat=flat_t,
                               row=row_t, rotary=rotary)
+    return cache, _last_logits(p, cfg, x, valid)
+
+
+def _last_logits(p, cfg, x: torch.Tensor, valid: int) -> torch.Tensor:
+    """The logits at a chunk's last real token."""
     x = apply_norm(cfg, p["ln_final"], x)
     last = max(valid - 1, 0)
-    return cache, _unembed(p, cfg, x[:, last:last + 1])
+    return _unembed(p, cfg, x[:, last:last + 1])
 
 
 def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
@@ -387,14 +503,16 @@ def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
     token: (B, 1); cache: tree from init_paged_cache_tree; pos: (B,)
     int32; page_map: (B, pages_per_slot) int32 (dummy rows for inactive
     slots), all on the cache's device; live: (B,) bool — it gates the
-    recurrent-state updates of the kinds that have them (none ported);
-    a non-live lane's attention write lands in the dummy page through
-    its page-map row. ``use_kernel``: attention through the
-    ``paged_decode`` wrapper, one launch per layer. Returns (logits,
-    cache).
+    ssm kind's recurrent-state updates; a non-live lane's attention
+    write lands in the dummy page through its page-map row.
+    ``use_kernel``: attention through the ``paged_decode`` wrapper, one
+    launch per layer (the ssm kind has no attention and ignores it).
+    Returns (logits, cache).
     """
     _require_paged(cfg)
     x = _embed_tokens(p, cfg, token, dtype)
+    if cfg.kind == "ssm":
+        return _ssm_decode_layers(p, cfg, x, cache, live=live), cache
     pos = pos.reshape(-1).expand(token.shape[0])
     w = effective_window(cfg, serve_window)
     # the write offsets and the RoPE angles, once for all layers

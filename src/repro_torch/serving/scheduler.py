@@ -12,7 +12,13 @@ stats and admission rules:
 
 * :class:`PagedContinuousScheduler` — continuous batching over the
   paged cache, with prefix sharing and chunked prefill; every decode
-  step runs the ``paged_decode`` kernel once per layer on the card.
+  step runs the ``paged_decode`` kernel once per layer on the card. The
+  ssm kind has no pages: its per-slot state carries across chunks.
+
+``ssd_kernel`` (every scheduler): the ssm kind's prefill scans that
+start from a zero state go through the ``ssd_scan`` kernel (True), the
+plain ``ssd_chunked`` (False), or — the default, None — the kernel on a
+CUDA device and the plain version on the CPU.
 
 Prompts are right-padded to ``max_prompt`` with per-request lengths, so
 padded prefixes never enter attention. The schedulers run on ``device``
@@ -115,7 +121,8 @@ class _SchedulerBase:
                  max_prompt: int = 64, max_total: int = 128,
                  temperature: float = 0.0, seed: int = 0,
                  cache_dtype=torch.float32, obs=NULL_OBS,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 ssd_kernel: Optional[bool] = None):
         if max_prompt > max_total:
             raise ValueError(f"max_prompt {max_prompt} exceeds max_total "
                              f"{max_total}")
@@ -131,6 +138,9 @@ class _SchedulerBase:
         self.max_total = max_total
         self.temperature = temperature
         self.cache_dtype = cache_dtype
+        if ssd_kernel is None:
+            ssd_kernel = self.device.type == "cuda"
+        self.ssd_kernel = ssd_kernel
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.queue: list[Request] = []
         self.active: list[Optional[Request]] = [None] * slots
@@ -308,7 +318,7 @@ class BatchScheduler(_SchedulerBase):
             logits, cache, pos = self.model.prefill(
                 params, {"tokens": self._tensor(toks)}, dtype=torch.float32,
                 cache_dtype=self.cache_dtype, cache_len=self.max_total,
-                lengths=self._tensor(lens))
+                lengths=self._tensor(lens), use_kernel=self.ssd_kernel)
         self._cache = cache
         self._pos = pos             # (slots,) = per-request prompt length
         self._last_logits = logits
@@ -368,7 +378,8 @@ class ContinuousScheduler(_SchedulerBase):
                     params, {"tokens": self._tensor(toks)},
                     dtype=torch.float32, cache_dtype=self.cache_dtype,
                     cache_len=self.max_total,
-                    lengths=self._tensor([len(req.prompt)]))
+                    lengths=self._tensor([len(req.prompt)]),
+                    use_kernel=self.ssd_kernel)
                 self.model.write_cache_slot(self._cache, c1, i,
                                             pos=self._pos, one_pos=p1[0])
                 self._last_logits[i:i + 1] = lg1
@@ -433,6 +444,9 @@ class PagedContinuousScheduler(_SchedulerBase):
         if paged_kernel is None:
             paged_kernel = self.device.type == "cuda"
         self.paged_kernel = paged_kernel
+        # page pools only exist for attention-bearing kinds; the ssm kind
+        # carries O(1) per-slot state and needs no pages
+        self._has_pages = model.cfg.kind != "ssm"
         self._shareable = model.cfg.kind in ("dense", "moe")
         self.table = PageTable(cache_pages, page_size)
         self.trie = PrefixTrie(page_size)
@@ -463,6 +477,8 @@ class PagedContinuousScheduler(_SchedulerBase):
         Commit is atomic: the trie match is only retained once the fresh
         allocation is known to fit, so a deferral leaves no refcounts
         behind."""
+        if not self._has_pages:
+            return [], []
         plen = len(req.prompt)
         total = -(-(plen + budget) // self.page_size)
         assert total <= self.pages_slot
@@ -559,7 +575,8 @@ class PagedContinuousScheduler(_SchedulerBase):
                                    rid=req.rid, start=start):
                     _, lg = self.model.prefill_chunk(
                         params, self._cache, self._tensor(toks), start,
-                        valid, row, slot, dtype=torch.float32)
+                        valid, row, slot, dtype=torch.float32,
+                        use_kernel=self.ssd_kernel)
                     self._last_logits[slot:slot + 1] = lg
                 req.prefill_chunks += 1
                 job["start"] = start + valid

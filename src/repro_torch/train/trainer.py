@@ -79,6 +79,13 @@ class ScaleTrainer:
                  hierarchy: Optional[HierarchyConfig] = None,
                  program: Optional[RoundProgram] = None,
                  device: DeviceLike = None):
+        if cfg.kind != "dense":
+            # the ssm kind's forward, loss and gradient are ported and
+            # held to the reference; its scale-mode training is not
+            raise NotImplementedError(
+                f"{cfg.name}: scale mode runs the dense kind; the "
+                f"{cfg.kind!r} kind is not ported for it yet (ROADMAP.md "
+                "Queue 1 item 6)")
         if tcfg.ckpt_every or tcfg.trace_dir or tcfg.profile:
             raise NotImplementedError(
                 "checkpoints (ckpt_every) and the observability sink "

@@ -62,6 +62,7 @@ for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.kernels.fused_consensus_sgd",
             "repro_torch.kernels.fused_sgd",
             "repro_torch.kernels.paged_decode",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
             "repro_torch.serving", "repro_torch.serving.engine",
             "repro_torch.serving.scheduler", "repro_torch.serving.pages",
             "repro_torch.launch.serve"):
@@ -87,6 +88,16 @@ sched.submit(Request(rid=0, prompt=[1, 2, 3, 4, 5], max_new=3))
 params = model.init(torch.Generator().manual_seed(0), "cpu")
 sched.step(params)
 assert sched.stats.decode_steps == 1 and sched.paged_kernel is False
+ssm_model = build_model(get_arch("mamba2-370m").reduced(d_model=64,
+                                                        vocab_size=64))
+ssm_sched = PagedContinuousScheduler(ssm_model, slots=2, max_prompt=8,
+                                     max_total=12, page_size=4,
+                                     prefill_chunk=4, device="cpu")
+ssm_sched.submit(Request(rid=0, prompt=[1, 2, 3, 4, 5], max_new=3))
+ssm_params = ssm_model.init(torch.Generator().manual_seed(0), "cpu")
+for _ in range(2):        # two prefill chunks, then a decode step
+    ssm_sched.step(ssm_params)
+assert ssm_sched.stats.decode_steps == 1 and ssm_sched.ssd_kernel is False
 print(len(names))
 """
 

@@ -10,7 +10,11 @@ reference's (``tests/test_kernels.py``): ``consensus_mix`` 1e-5 in
 float32 and 2e-2 in bfloat16; ``fused_sgd`` and ``fused_consensus_sgd``
 1e-6 in float32 and 1e-2 in bfloat16 (atol and rtol); ``paged_decode``
 1e-5 with float32 and with bfloat16 pools (both versions read the pools
-in float32, and bf16 -> f32 is exact).
+in float32, and bf16 -> f32 is exact); ``ssd_scan`` the reference's
+max |Δy| / max |y| < 1e-4 and final state to rtol/atol 1e-4 in float32,
+and in bfloat16 (inputs rounded to bf16, both versions in float32
+inside) y within 1e-2 of max |y|: the two round different float32 sums
+to bfloat16, one bf16 step (2^-8 relative) apart at most.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,8 @@ from repro_torch.kernels.fused_consensus_sgd import (
 from repro_torch.kernels.fused_sgd import fused_sgd, fused_sgd_plain
 from repro_torch.kernels.paged_decode import (
     MAX_GROUP, MAX_HEAD_DIM, paged_decode, paged_decode_plain)
+from repro_torch.kernels.ssd_scan import (
+    MAX_STATE, P_TILE, ssd_scan, ssd_scan_plain)
 
 SHAPES = [(1, 2, 8), (3, 5, 100), (4, 8, 700), (2, 5, 513), (25, 5, 64),
           (25, 5, 10), (2, MAX_CLUSTER_SIZE, 300)]
@@ -194,10 +200,64 @@ def test_paged_decode_refuses_bad_inputs_before_dispatch():
         paged_decode(q, kp, vp, pm, pos[:1])
 
 
+# ssd_scan: (BH, T, P, S, chunk) — tests/test_kernels.py's shapes (the
+# ragged T = 130 included), the reduced mamba2's rows, the serve path's
+# admission (32 heads, a 512-token prompt) and a 4-chunk forward row set
+SSD_SHAPES = [(1, 64, 16, 16, 16), (2, 256, 64, 128, 128),
+              (3, 512, 64, 128, 256), (2, 130, 32, 64, 64),
+              (8, 45, 32, 32, 32), (32, 512, 64, 128, 256),
+              (64, 1024, 64, 128, 256)]
+
+
+def _ssd_inputs(BH, T, P, S, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(BH, T, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(BH, T)).astype(np.float32)
+    loga = (-dt * rng.uniform(0.5, 2.0, size=(BH, 1))).astype(np.float32)
+    B = (rng.normal(size=(BH, T, S)) * 0.3).astype(np.float32)
+    C = (rng.normal(size=(BH, T, S)) * 0.3).astype(np.float32)
+    to = lambda a, d=dtype: torch.from_numpy(a).to(device, d)  # noqa: E731
+    return (to(x), to(dt, torch.float32), to(loga, torch.float32), to(B),
+            to(C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_cpu_tensors_take_the_plain_version(dtype):
+    for BH, T, P, S, chunk in SSD_SHAPES[:5]:
+        args = _ssd_inputs(BH, T, P, S, dtype, "cpu")
+        before = ssd_scan.launches
+        y, h = ssd_scan(*args, chunk=chunk)
+        assert ssd_scan.launches == before
+        yp, hp = ssd_scan_plain(*args, chunk=chunk)
+        assert torch.equal(y, yp) and torch.equal(h, hp)
+        assert y.dtype == dtype and y.shape == (BH, T, P)
+        assert h.dtype == torch.float32 and h.shape == (BH, S, P)
+
+
+def test_ssd_scan_refuses_bad_inputs_before_dispatch():
+    x, dt, loga, B, C = _ssd_inputs(2, 32, 16, 16, torch.float32, "cpu")
+    with pytest.raises(ValueError, match=r"\(BH, T, P\)"):
+        ssd_scan(x[0], dt, loga, B, C)
+    with pytest.raises(ValueError, match="dt must be"):
+        ssd_scan(x, dt[:, :8], loga, B, C)
+    with pytest.raises(ValueError, match="B must be"):
+        ssd_scan(x, dt, loga, B[:1], C)
+    with pytest.raises(ValueError, match="C must match"):
+        ssd_scan(x, dt, loga, B, C[..., :8])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(x.half(), dt, loga, B.half(), C.half())
+    with pytest.raises(TypeError, match="like x"):
+        ssd_scan(x, dt, loga, B.bfloat16(), C)
+    with pytest.raises(TypeError, match="dt and loga must be float32"):
+        ssd_scan(x, dt.double(), loga, B, C)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ssd_scan(x, dt, loga.requires_grad_(), B, C)
+
+
 def test_build_names_the_sources():
     # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
     assert build.sources() == ["consensus_mix", "fused_consensus_sgd",
-                               "paged_decode"]
+                               "paged_decode", "ssd_scan"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
@@ -332,3 +392,43 @@ def test_paged_decode_refuses_what_it_cannot_run(cuda_device):
                      pm, pos)
     with pytest.raises(ValueError, match="share a device"):
         paged_decode(q, kp, vp, pm.cpu(), pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_on_card(cuda_device, dtype):
+    for i, (BH, T, P, S, chunk) in enumerate(SSD_SHAPES):
+        args = _ssd_inputs(BH, T, P, S, dtype, cuda_device, seed=i)
+        before = ssd_scan.launches
+        y, h = ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        assert y.dtype == dtype and y.shape == (BH, T, P)
+        yp, hp = ssd_scan_plain(*args, chunk=chunk)
+        err = float((y.float() - yp.float()).abs().max())
+        scale = float(yp.float().abs().max())
+        assert err <= (1e-4 if dtype == torch.float32 else 1e-2) * scale, \
+            (BH, T, P, S, chunk, err, scale)
+        np.testing.assert_allclose(h.cpu().numpy(), hp.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_cannot_run(cuda_device):
+    x, dt, loga, B, C = _ssd_inputs(2, 64, 16, 16, torch.float32,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="multiple of"):
+        ssd_scan(x[..., :P_TILE - 4].contiguous(), dt, loga, B, C, chunk=16)
+    big = torch.zeros((2, 64, MAX_STATE + 4), device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        ssd_scan(x, dt, loga, big, big, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan(x, dt, loga, B, C, chunk=4096)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, loga,
+                 B, C, chunk=16)
+    with pytest.raises(ValueError, match="share a device"):
+        ssd_scan(x, dt.cpu(), loga, B, C, chunk=16)
+    flat = torch.zeros(2 * 64 * 16 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan(flat[1:].view(2, 64, 16), dt, loga, B, C, chunk=16)

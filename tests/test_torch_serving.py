@@ -1,8 +1,11 @@
 """The port's serving path against ``repro.serving`` on the CPU: the page
 table, the ring and paged engines, the three schedulers and the serve
-CLI, on reduced configs (2 layers, d 64, vocabulary 128, as
+CLI, for the dense kinds and the ssm kind (mamba2-370m), on reduced
+configs (2 layers, d 64, vocabulary 128, as
 ``tests/test_serving_paged.py``), with the reference's parameters
-carried across by ``params_from_jax`` and inputs made with numpy.
+carried across by ``params_from_jax`` and inputs made with numpy. The
+ssm kind's ``use_kernel`` takes the ``ssd_scan`` wrapper, which runs its
+plain version on the CPU.
 
 Tolerances, and why:
 - logits within 1e-5 (the reference's paged-vs-ring tolerance; float32
@@ -11,7 +14,9 @@ Tolerances, and why:
 - ``paged_decode_plain`` within 1e-5 of the Pallas kernel in interpret
   mode (the reference's kernel tolerance);
 - scheduler tokens, trace stats and page counters exactly (at
-  temperature 0 they follow from the logits and the host bookkeeping).
+  temperature 0 they follow from the logits and the host bookkeeping);
+- a mixed-length prefill against solo prefills of the same model, the
+  reference's 3e-4 (``tests/test_serving.py``).
 """
 import dataclasses
 import functools
@@ -40,8 +45,8 @@ from repro_torch.models import build_model, params_from_jax
 from repro_torch.serving import (
     BatchScheduler, ContinuousScheduler, PagedContinuousScheduler,
     PageTable, PrefixTrie, Request, decode_step, decode_step_paged,
-    init_paged_cache_tree, pages_per_slot, prefill, prefill_chunk,
-    run_trace, write_cache_slot,
+    init_cache_tree, init_paged_cache_tree, pages_per_slot, prefill,
+    prefill_chunk, run_trace, write_cache_slot,
 )
 
 ATOL = 1e-5
@@ -52,6 +57,7 @@ FAMILIES = {
     "dense-window": ("qwen1.5-0.5b", 8, ()),
     "sliding": ("starcoder2-3b", 0, (("sliding_window", 8),)),
     "mqa": ("gemma-2b", 0, ()),
+    "ssm": ("mamba2-370m", 0, ()),
 }
 
 
@@ -172,7 +178,7 @@ def _paged_run(cfg, p, prompt, max_new, serve_window, *, ps, chunk, feed,
         cache, logits = prefill_chunk(
             p, cfg, cache, torch.from_numpy(padded[start:start + chunk])[None],
             start, valid, row, 0, dtype=torch.float32,
-            serve_window=serve_window)
+            serve_window=serve_window, use_kernel=use_kernel)
         start += valid
     out = [logits[0, 0].numpy()]
     pos = torch.tensor([plen], dtype=torch.int32)
@@ -198,7 +204,9 @@ def _assert_logits_and_tokens(mine, ref):
 def test_paged_prefill_and_decode_match_reference(family, use_kernel):
     """prefill_chunk (two chunks) and decode_step_paged (through the
     plain gather, or the kernel's wrapper, which takes its plain version
-    on the CPU), the sliding band past the window included."""
+    on the CPU), the sliding band past the window included; for the ssm
+    kind the first chunk's scan through the ``ssd_scan`` wrapper and the
+    second carrying the slot's state."""
     arch, sw, over = FAMILIES[family]
     cfg, jcfg, p, jp = _tiny(arch, over)
     prompt = _prompt(cfg, 0, 11)
@@ -250,7 +258,8 @@ def test_paged_decode_plain_matches_pallas_interpret():
 def test_ring_prefill_decode_and_slot_write_match_reference(family):
     """prefill with mixed lengths (right-padded), decode_step with
     per-slot positions past the ring's wrap for the windowed cases, and
-    write_cache_slot of a batch-1 prefill: logits and caches."""
+    write_cache_slot of a batch-1 prefill: logits and caches (the ssm
+    kind's state, the conv contexts and h, included)."""
     arch, sw, over = FAMILIES[family]
     cfg, jcfg, p, jp = _tiny(arch, over)
     B, T, steps, total = 3, 12, 5, 20
@@ -295,7 +304,7 @@ def test_ring_prefill_decode_and_slot_write_match_reference(family):
                                          one_pos=jp1[0])
     tc, tpos = write_cache_slot(cfg, tc, tc1, 1, pos=tpos, one_pos=tp1[0])
     assert tpos.tolist() == np.asarray(jpos).tolist()
-    for name in ("k", "v"):
+    for name in tc["layers"]:          # k, v; or the ssm state leaves
         np.testing.assert_allclose(tc["layers"][name].numpy(),
                                    np.asarray(jc["layers"][name]),
                                    atol=ATOL, rtol=0)
@@ -332,6 +341,130 @@ def test_ring_aligned_batch_matches_reference():
         jpos, tpos = jpos + 1, tpos + 1
 
 
+# ------------------------------------------------- ssm kind (mamba2)
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_ssm_prefill_lengths_matches_solo(use_kernel):
+    """tests/test_serving.py's mixed-length case for mamba2-370m (its
+    reduced default, d 256): a right-padded two-row prefill equals the
+    reference's (logits, pos, 4 greedy decode steps) and each row's solo
+    prefill and decode in the port."""
+    cfg, jcfg = get_arch(MAMBA).reduced(), j_get_arch(MAMBA).reduced()
+    jp = j_build_model(jcfg).init(jax.random.PRNGKey(0))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    lens = [5, 11]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size - 1, size=n).astype(np.int32)
+               for n in lens]
+    toks = np.zeros((2, 16), np.int32)
+    for i, pr in enumerate(prompts):
+        toks[i, :len(pr)] = pr
+    kw = dict(dtype=torch.float32, cache_dtype=torch.float32, cache_len=32)
+    lg, cache, pos = prefill(p, cfg, {"tokens": torch.from_numpy(toks)},
+                             lengths=torch.tensor(lens),
+                             use_kernel=use_kernel, **kw)
+    jlg, jcache, jpos = j_engine.prefill(
+        jp, jcfg, {"tokens": jnp.asarray(toks)}, dtype=jnp.float32,
+        cache_dtype=jnp.float32, cache_len=32, lengths=jnp.asarray(lens))
+    assert pos.tolist() == lens == np.asarray(jpos).tolist()
+    solo = [prefill(p, cfg, {"tokens": torch.from_numpy(pr[None])},
+                    use_kernel=use_kernel, **kw) for pr in prompts]
+    for step in range(5):
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=ATOL,
+                                   rtol=0)
+        for i, (lgs, _, _) in enumerate(solo):
+            np.testing.assert_allclose(lg[i].numpy(), lgs[0].numpy(),
+                                       atol=3e-4)
+        if step == 4:
+            break
+        tb = _greedy(lg)
+        assert tb[:, 0].tolist() == [int(_greedy(l)[0, 0]) for l, _, _ in solo]
+        solo = [(*decode_step(p, cfg, _greedy(l), c, ps,
+                              dtype=torch.float32), ps + 1)
+                for l, c, ps in solo]
+        jlg, jcache = j_engine.decode_step(jp, jcfg, jnp.asarray(tb.numpy()),
+                                           jcache, jpos, dtype=jnp.float32)
+        lg, cache = decode_step(p, cfg, tb, cache, pos, dtype=torch.float32)
+        pos, jpos = pos + 1, jpos + 1
+
+
+def test_ssm_write_cache_slot_roundtrip():
+    """tests/test_serving.py's slot-write case for mamba2-370m: batch-1
+    prefills written into a live cache are their solo caches row for row
+    (the state and the conv contexts), equal the reference's, and decode
+    like their solo continuations."""
+    cfg, jcfg, p, jp = _tiny(MAMBA)
+    rng = np.random.default_rng(2)
+    cache = init_cache_tree(cfg, 2, 32, torch.float32, device="cpu")
+    jcache = j_engine.init_cache_tree(jcfg, 2, 32, jnp.float32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    jpos = jnp.zeros((2,), jnp.int32)
+    solos = []
+    for slot, n in enumerate((7, 10)):
+        pr = rng.integers(1, cfg.vocab_size - 1, size=n).astype(np.int32)
+        lg1, c1, p1 = prefill(p, cfg, {"tokens": torch.from_numpy(pr[None])},
+                              dtype=torch.float32, cache_dtype=torch.float32,
+                              cache_len=32)
+        _, jc1, jp1 = j_engine.prefill(
+            jp, jcfg, {"tokens": jnp.asarray(pr[None])}, dtype=jnp.float32,
+            cache_dtype=jnp.float32, cache_len=32)
+        cache, pos = write_cache_slot(cfg, cache, c1, slot, pos=pos,
+                                      one_pos=p1)
+        jcache, jpos = j_engine.write_cache_slot(jcfg, jcache, jc1, slot,
+                                                 pos=jpos, one_pos=jp1)
+        solos.append((lg1, c1, p1))
+    assert pos.tolist() == [7, 10] == np.asarray(jpos).tolist()
+    assert sorted(cache["layers"]) == ["conv_B", "conv_C", "conv_x", "h"]
+    for name, leaf in cache["layers"].items():
+        np.testing.assert_allclose(leaf.numpy(),
+                                   np.asarray(jcache["layers"][name]),
+                                   atol=ATOL, rtol=0)
+        for slot, (_, c1, _) in enumerate(solos):
+            assert torch.equal(leaf[:, slot], c1["layers"][name][:, 0])
+    lgb = torch.cat([s[0] for s in solos])
+    for _ in range(3):
+        tb = _greedy(lgb)
+        assert tb[:, 0].tolist() == [int(_greedy(l)[0, 0])
+                                     for l, _, _ in solos]
+        solos = [(*decode_step(p, cfg, _greedy(l), c, ps,
+                               dtype=torch.float32), ps + 1)
+                 for l, c, ps in solos]
+        lgb, cache = decode_step(p, cfg, tb, cache, pos, dtype=torch.float32)
+        pos = pos + 1
+        for i, (l, _, _) in enumerate(solos):
+            np.testing.assert_allclose(lgb[i].numpy(), l[0].numpy(),
+                                       atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_ssm_paged_decode_matches_ring(use_kernel):
+    """tests/test_serving_paged.py's ssm family: chunked paged prefill
+    (chunks of 4 across an 11-token prompt: the first from a zero state,
+    the later ones from the carried state) and paged decode equal the
+    ring prefill and decode, greedy tokens and logits."""
+    cfg, _, p, _ = _tiny(MAMBA)
+    prompt = _prompt(cfg, 0, 11)
+    lg, cache, pos = prefill(p, cfg, {"tokens": torch.from_numpy(
+        prompt[None])}, dtype=torch.float32, cache_dtype=torch.float32,
+        cache_len=16, use_kernel=use_kernel)
+    ring = [lg[0, 0].numpy()]
+    tok = _greedy(lg)
+    feed = []
+    for _ in range(4):
+        feed.append(int(tok[0, 0]))
+        lg, cache = decode_step(p, cfg, tok, cache, pos, dtype=torch.float32)
+        ring.append(lg[0, 0].numpy())
+        tok, pos = _greedy(lg), pos + 1
+    paged = _paged_run(cfg, p, prompt, 5, 0, ps=4, chunk=4, feed=feed,
+                       use_kernel=use_kernel)
+    _assert_logits_and_tokens(paged, ring)
+    assert [int(a.argmax()) for a in ring[:-1]] == feed
+
+
 # ------------------------------------------------- scheduler-level e2e
 
 def _trace(cfg, seed, n_req, request_cls, template=0):
@@ -355,19 +488,41 @@ RECORD_FIELDS = ("rid", "submit", "admit", "first_token", "retire",
                  "decode", "budget", "prefill_chunks", "prefix_pages_reused")
 
 # name -> (port class, reference class, extra kwargs, trace seed,
-#          requests, template, paged counters that must be positive)
+#          requests, template, paged counters that must be positive,
+#          arch)
+QWEN, MAMBA = "qwen1.5-0.5b", "mamba2-370m"
 SCHED_CASES = {
     "paged": (PagedContinuousScheduler, JPaged,
-              dict(page_size=4, prefill_chunk=8), 7, 6, 0, ()),
+              dict(page_size=4, prefill_chunk=8), 7, 6, 0, (), QWEN),
     "paged-prefix": (PagedContinuousScheduler, JPaged,
                      dict(page_size=4, cache_pages=9), 11, 8, 8,
-                     ("prefix_pages_hit",)),
+                     ("prefix_pages_hit",), QWEN),
     "paged-deferral": (PagedContinuousScheduler, JPaged,
                        dict(page_size=4, cache_pages=7), 11, 8, 8,
-                       ("prefix_pages_hit", "page_deferrals")),
-    "continuous": (ContinuousScheduler, JContinuous, {}, 7, 6, 0, ()),
-    "wave": (BatchScheduler, JBatch, {}, 7, 6, 0, ()),
+                       ("prefix_pages_hit", "page_deferrals"), QWEN),
+    "continuous": (ContinuousScheduler, JContinuous, {}, 7, 6, 0, (), QWEN),
+    "wave": (BatchScheduler, JBatch, {}, 7, 6, 0, (), QWEN),
+    # the ssm kind: no pages (the pool stays free, the trie empty), its
+    # state carried across chunks of 8
+    "ssm-paged": (PagedContinuousScheduler, JPaged,
+                  dict(page_size=4, prefill_chunk=8), 11, 8, 8, (), MAMBA),
+    "ssm-continuous": (ContinuousScheduler, JContinuous, {}, 7, 6, 0, (),
+                       MAMBA),
+    "ssm-wave": (BatchScheduler, JBatch, {}, 7, 6, 0, (), MAMBA),
 }
+
+
+def _settled(jsched):
+    """The reference scheduler with every decode waited for before the
+    host goes on. Its paged scheduler hands ``jnp.asarray(self._live)``
+    (and the page map) to a decode dispatched asynchronously, then sets
+    ``_live[slot]`` in place in the next tick's ``_advance_prefills``; on
+    the CPU the pending decode can read the new mask and advance a slot
+    whose prefill is still running, which changes that request's tokens
+    from run to run."""
+    decode = jsched._decode
+    jsched._decode = lambda *a: jax.block_until_ready(decode(*a))
+    return jsched
 
 
 @pytest.mark.parametrize("case", sorted(SCHED_CASES))
@@ -377,13 +532,14 @@ def test_schedulers_match_reference(case):
     scheduler the same deferrals, prefix hits and free pages (the
     reference's ``cache_pages=9`` trace shares an 8-token template; at 7
     pages admission also defers)."""
-    cls, jcls, extra, seed, n_req, template, positive = SCHED_CASES[case]
-    cfg, jcfg, p, jp = _tiny("qwen1.5-0.5b")
+    cls, jcls, extra, seed, n_req, template, positive, arch = \
+        SCHED_CASES[case]
+    cfg, jcfg, p, jp = _tiny(arch)
     kw = dict(slots=2, max_prompt=14, max_total=20, temperature=0.0,
               **extra)
     ref = _trace(jcfg, seed, n_req, JRequest, template)
     mine = _trace(cfg, seed, n_req, Request, template)
-    jsched = jcls(j_build_model(jcfg), **kw)
+    jsched = _settled(jcls(j_build_model(jcfg), **kw))
     sched = cls(build_model(cfg), device="cpu", **kw)
     jstats = j_run_trace(jsched, jp, ref)
     stats = run_trace(sched, p, mine)
@@ -426,13 +582,7 @@ def test_cache_dtype_reaches_every_cache_leaf(sched_cls):
     assert sched.stats.requests_done == 1
 
 
-@pytest.mark.parametrize("scheduler", ["paged", "continuous", "wave"])
-def test_serve_cli_prints_the_reference_counts(scheduler, capsys):
-    """The same trace through both CLIs: the same done, prefills,
-    decode_steps and tokens (they follow from the trace, not from the
-    weights, which the two packages draw differently)."""
-    argv = ["--reduced", "--scheduler", scheduler, "--temperature", "0",
-            "--prefill-chunk", "32", "--prefix-template", "20"]
+def _assert_cli_counts_match(argv, scheduler, capsys):
     assert j_serve_cli.main(argv) == 0
     ref = capsys.readouterr().out.splitlines()
     assert serve_cli.main(argv + ["--device", "cpu"]) == 0
@@ -448,6 +598,28 @@ def test_serve_cli_prints_the_reference_counts(scheduler, capsys):
         assert mine[-1] == ref[-1]          # pages: ... deferrals=...
 
 
+@pytest.mark.parametrize("scheduler", ["paged", "continuous", "wave"])
+def test_serve_cli_prints_the_reference_counts(scheduler, capsys):
+    """The same trace through both CLIs: the same done, prefills,
+    decode_steps and tokens (they follow from the trace, not from the
+    weights, which the two packages draw differently)."""
+    _assert_cli_counts_match(
+        ["--reduced", "--scheduler", scheduler, "--temperature", "0",
+         "--prefill-chunk", "32", "--prefix-template", "20"],
+        scheduler, capsys)
+
+
+@pytest.mark.parametrize("scheduler", ["paged", "continuous", "wave"])
+def test_serve_cli_prints_the_reference_counts_ssm(scheduler, capsys):
+    """``--arch mamba2-370m --reduced``: the same counts as the
+    reference's CLI, the paged scheduler's page line (no page used)
+    included."""
+    _assert_cli_counts_match(
+        ["--arch", "mamba2-370m", "--reduced", "--scheduler", scheduler,
+         "--temperature", "0", "--prefill-chunk", "32",
+         "--prefix-template", "20"], scheduler, capsys)
+
+
 def test_entry_points_refuse_to_run_quietly_on_the_cpu(monkeypatch):
     """No card and no explicit device: the serve CLI and the schedulers
     raise instead of carrying on on the CPU."""
@@ -460,7 +632,7 @@ def test_entry_points_refuse_to_run_quietly_on_the_cpu(monkeypatch):
 
 
 def test_non_dense_kinds_and_unported_flags_raise():
-    for arch, err in (("mamba2-370m", NotImplementedError),
+    for arch, err in (("recurrentgemma-9b", NotImplementedError),
                       ("llama4-scout-17b-a16e", NotImplementedError),
                       ("whisper-small", ValueError)):
         model = build_model(get_arch(arch).reduced())
