@@ -17,24 +17,31 @@ Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a),
-             one nvcc per source, all started together.
+             one nvcc per source, all started together; print ptxas's
+             registers, shared memory and spills of every instance of
+             ``fused_sgd_kernel`` and ``paged_decode_kernel``.
 2. kernels — each kernel against its plain version on the card:
              ``consensus_mix`` at the shapes of tests/test_kernels.py and
              of the sim path, f32 (atol 1e-5) and bf16 (atol 2e-2);
              ``fused_consensus_sgd`` and ``fused_sgd`` at the shapes of
              tests/test_kernels.py with wd in {0, 0.1} (atol 1e-6 in f32,
-             1e-2 in bf16) and at the scale path's flat replica buffer,
-             f32. At the main paths' shapes it times each kernel, its
-             plain version and a library yardstick the port never calls
-             (``torch.bmm`` with the precomputed ``V^Γ``; ``torch.add``
-             with ``alpha=-η``; and the two calls ``torch.bmm(W,
-             torch.add(w, g, alpha=-η))``). ``paged_decode`` at the
-             shapes of tests/test_torch_kernels.py (the reference's test
-             shape, all-dummy rows with pos past their pages, the serve
-             path's shape, a gemma-2b-like MQA and a starcoder2-3b-like
-             GQA past its 4096 window), f32 and bf16 pools, atol 1e-5;
-             timed at the serve path's shape with its inputs rotated
-             over copies larger than the L2, beside the page gather plus
+             1e-2 in bf16; ``fused_sgd`` bitwise equal in f32, also at
+             every size 1..33 at offsets 0 and 1 and with w and g at
+             other offsets mod 16) and at the scale path's flat replica
+             buffer, f32. At the main paths' shapes it times each kernel,
+             its plain version and a library yardstick the port never
+             calls (``torch.bmm`` with the precomputed ``V^Γ``;
+             ``torch.add`` with ``alpha=-η``, in turns with the kernel;
+             and the two calls ``torch.bmm(W, torch.add(w, g,
+             alpha=-η))``). ``paged_decode`` at the shapes of
+             tests/test_torch_kernels.py (the reference's test shape,
+             all-dummy rows with pos past their pages, the serve path's
+             shape, a gemma-2b-like MQA, a starcoder2-3b-like GQA past
+             its 4096 window in 160 splits, and the split's boundaries),
+             f32 and bf16 pools, atol 1e-5, a second launch bitwise equal
+             to the first; timed at the serve path's shape and with all 8
+             slots at position 639, its inputs rotated over copies larger
+             than the L2, beside the page gather plus
              ``scaled_dot_product_attention`` (two calls). ``ssd_scan``
              at the shapes of tests/test_kernels.py (ragged T = 130
              included; f32 max |Δy| / max |y| < 1e-4 and the final state
@@ -148,7 +155,19 @@ PAGED_CASES = {
                    [80 * (b + 1) - 1 for b in range(8)]),
     "gemma-mqa": (4, 1, 8, 256, 16, 8, 33, 0, [3, 60, None, 127]),
     "starcoder-window": (2, 2, 12, 128, 16, 320, 641, 4096, [4500, 5119]),
+    # the kernel's split at its boundaries (a chunk of 64 positions here):
+    # live ranges of 1, 63, 64 and 65, windows from mid-chunk, a retired
+    # slot, all-masked windowed rows, rows of no whole 16-byte pieces
+    "split-edges": (4, 2, 2, 64, 16, 12, 49, 0, [0, 62, 63, 64]),
+    "split-window": (4, 2, 2, 64, 16, 12, 49, 35, [69, 138, 191, 40]),
+    "split-retired": (4, 2, 2, 64, 16, 12, 49, 0, [67, None, 128, 5]),
+    "split-all-masked": (4, 2, 2, 64, 16, 12, 49, 16, [211, None, 100, 232]),
+    "odd-head": (3, 2, 3, 6, 4, 5, 16, 0, [0, 11, 19]),
 }
+SPLIT_CHUNK = 64
+# timed only: the serve shape with every slot at its last position, so no
+# slot waits on a longer one
+PAGED_BALANCED = (8, 16, 1, 64, 16, 40, 321, 0, [639] * 8)
 PAGED_TOL = 1e-5
 # the serve path: the serve CLI's paged trace at full width and depth
 SERVE_TRACE = dict(requests=32, prompt_len=512, gen=128, seed=0,
@@ -219,6 +238,29 @@ def mixing_inputs(shape, dtype, seed, gamma=None):
             torch.as_tensor(gamma, dtype=torch.int32, device="cuda"))
 
 
+def ptxas_entries(report: str, match: str) -> list:
+    """(kernel, registers, static shared memory B, spill stores B) of each
+    entry function of nvcc's ``-Xptxas -v`` report whose mangled name
+    holds ``match``, demangled when ``c++filt`` is there."""
+    import re
+    import shutil
+    rows = []
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if match not in name:
+            continue
+        nums = [re.search(pat, block) for pat in (
+            r"Used (\d+) registers", r"(\d+) bytes smem",
+            r"(\d+) bytes spill stores")]
+        rows.append([name] + [int(m.group(1)) if m else 0 for m in nums])
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        for r, name in zip(rows, out.stdout.splitlines()):
+            r[0] = name
+    return [tuple(r) for r in rows]
+
+
 def phase_build() -> None:
     import re
 
@@ -238,6 +280,13 @@ def phase_build() -> None:
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill stores "
             f"up to {max(spills, default=0)} B (ptxas report in "
             f"chiprun_out/nvcc_{name}.txt)")
+    # the kernels redesigned for the card: each instance on its own
+    for name, match in (("fused_consensus_sgd", "fused_sgd_kernel"),
+                        ("paged_decode", "paged_decode_kernel")):
+        for kernel, regs, smem, spill in ptxas_entries(
+                reports.get(name, ""), match):
+            log(f"[build] ptxas {kernel}: {regs} registers, {smem} B static "
+                f"shared memory, {spill} B spill stores")
 
 
 def phase_kernels() -> dict:
@@ -370,13 +419,35 @@ def phase_fused_kernels() -> dict:
                 w, g = sgd_inputs(shape, getattr(torch, dt), seed=i)
                 out = fused_sgd(w, g, 0.01, weight_decay=wd)
                 torch.cuda.synchronize()
-                err = compare(out, fused_sgd_plain(w, g, 0.01,
-                                                   weight_decay=wd), dt,
-                              shape)
+                plain = fused_sgd_plain(w, g, 0.01, weight_decay=wd)
+                err = compare(out, plain, dt, shape)
+                if dt == "float32":
+                    assert torch.equal(out, plain), shape
                 d = worst["fused_sgd"]
                 d[dt] = max(d.get(dt, 0.0), err)
                 log(f"[kernels] fused_sgd {shape} {dt} wd={wd} "
-                    f"max_abs_err={err:.3e} (tol {SGD_TOL[dt]})")
+                    f"max_abs_err={err:.3e} (tol {SGD_TOL[dt]}"
+                    f"{'; bitwise equal' if dt == 'float32' else ''})")
+            # sizes 1..33 around the vector width at offsets 0 and 1
+            # (big[1:]: a scalar head), and w, g at other offsets mod 16
+            # (the scalar loop)
+            for n in range(1, 34):
+                big, gbig = sgd_inputs((n + 2,), getattr(torch, dt), seed=n)
+                for w, g in ((big[:n], gbig[:n]),
+                             (big[1:n + 1], gbig[1:n + 1]),
+                             (big[1:n + 1], gbig[2:n + 2])):
+                    out = fused_sgd(w, g, 0.01, weight_decay=wd)
+                    torch.cuda.synchronize()
+                    plain = fused_sgd_plain(w, g, 0.01, weight_decay=wd)
+                    err = compare(out, plain, dt, (n, w.data_ptr() % 16))
+                    if dt == "float32":
+                        assert torch.equal(out, plain), n
+                    d = worst["fused_sgd"]
+                    d[dt] = max(d.get(dt, 0.0), err)
+            log(f"[kernels] fused_sgd sizes 1..33 at offsets 0 and 1 and "
+                f"unequal offsets {dt} wd={wd}: max_abs_err "
+                f"{worst['fused_sgd'][dt]:.3e}"
+                f"{' (bitwise equal)' if dt == 'float32' else ''}")
 
     # the scale path: the flat (4, P) f32 buffer of qwen1.5-0.5b, seen as
     # (N, s, P) = (2, 2, P) at the block end
@@ -418,20 +489,31 @@ def phase_fused_kernels() -> dict:
     w2, g2 = w.view(4, QWEN_P), g.view(4, QWEN_P)
     out = fused_sgd(w2, g2, eta)
     torch.cuda.synchronize()
-    err = compare(out, fused_sgd_plain(w2, g2, eta), "float32",
-                  "fused_sgd main")
-    del out
+    plain = fused_sgd_plain(w2, g2, eta)
+    err = compare(out, plain, "float32", "fused_sgd main")
+    assert torch.equal(out, plain), "fused_sgd main: not bitwise equal"
+    del out, plain
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: fused_sgd(w2, g2, eta), iters=10, warmup=2)
+    # kernel and torch.add in turns (kernel, add, add, kernel, kernel,
+    # add), after an untimed turn of each: the first launches after
+    # empty_cache map a fresh 7.4 GB output
+    calls = {"kernel": lambda: fused_sgd(w2, g2, eta),
+             "add": lambda: torch.add(w2, g2, alpha=-SCALE_LR)}
+    for fn in calls.values():
+        cuda_ms(fn, iters=5)
+    order = ("kernel", "add", "add", "kernel", "kernel", "add")
+    turns = [cuda_ms(calls[name], iters=20, warmup=2) for name in order]
+    ms = sum(t for t, name in zip(turns, order) if name == "kernel") / 3
+    library_ms = sum(t for t, name in zip(turns, order) if name == "add") / 3
     plain_ms = cuda_ms(lambda: fused_sgd_plain(w2, g2, eta), iters=3)
-    library_ms = cuda_ms(lambda: torch.add(w2, g2, alpha=-SCALE_LR),
-                         iters=10, warmup=2)
     b_ms, b_by = bound(bytes_moved, n * 2)
     log(f"[kernels] fused_sgd (4, {QWEN_P}) f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.add(w, g, alpha=-η) {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {bytes_moved} B at 3.35 TB/s), "
-        f"kernel at {bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err "
-        f"{err:.3e}")
+        f"{plain_ms:.4f} ms, torch.add(w, g, alpha=-η) {library_ms:.4f} ms "
+        f"(in turns: {', '.join(f'{n} {t:.4f}' for n, t in zip(order, turns))}"
+        f" ms), bound {b_ms:.4f} ms "
+        f"({b_by}: {bytes_moved} B at 3.35 TB/s), kernel at "
+        f"{bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err {err:.3e} (bitwise "
+        f"equal)")
     numbers["fused_sgd"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -742,11 +824,12 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paged_inputs(case, dtype, seed=0, copies=1):
+def paged_inputs(spec, dtype, seed=0, copies=1):
     """q, [(k_pages, v_pages)] * copies, page_map, pos, window on the
-    card, from one numpy seed (as tests/test_torch_kernels.py)."""
+    card for a ``PAGED_CASES`` spec, from one numpy seed (as
+    tests/test_torch_kernels.py)."""
     import torch
-    B, K, G, hd, ps, P, N, window, pos = PAGED_CASES[case]
+    B, K, G, hd, ps, P, N, window, pos = spec
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, K, G, hd)).astype(np.float32)
     kp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
@@ -771,43 +854,66 @@ def paged_inputs(case, dtype, seed=0, copies=1):
 
 def phase_paged_kernel() -> dict:
     """``paged_decode`` against its plain version at every case, f32 and
-    bf16 pools; then timed at the serve path's shape against its bound,
-    its plain version and a library yardstick."""
-    import itertools
-
+    bf16 pools (a second launch must give the same bits: the merge's
+    order is fixed); then timed at the serve path's shape and at the
+    balanced one against its bound, its plain version and a library
+    yardstick."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_decode import (
-        paged_decode, paged_decode_plain)
+        paged_decode, paged_decode_plain, split_plan)
 
     worst = {}
-    for case in PAGED_CASES:
+    for case, spec in PAGED_CASES.items():
         for dt in ("float32", "bfloat16"):
-            q, pools, pm, pos, window = paged_inputs(case, getattr(torch, dt))
+            q, pools, pm, pos, window = paged_inputs(spec, getattr(torch, dt))
             (kp, vp), = pools
+            if case.startswith("split-"):
+                assert split_plan(*spec[:6], kp.dtype).chunk == SPLIT_CHUNK
             out = paged_decode(q, kp, vp, pm, pos, window=window)
             torch.cuda.synchronize()
             plain = paged_decode_plain(q, kp, vp, pm, pos, window=window)
             assert out.dtype == torch.float32 and out.shape == q.shape
             assert torch.isfinite(out).all(), case
+            assert torch.equal(
+                paged_decode(q, kp, vp, pm, pos, window=window), out), case
             err = float((out - plain).abs().max())
             assert err <= PAGED_TOL, (case, dt, err)
             worst[dt] = max(worst.get(dt, 0.0), err)
             log(f"[kernels] paged_decode {case} {PAGED_CASES[case][:8]} "
                 f"{dt} max_abs_err={err:.3e} (tol {PAGED_TOL})")
 
-    # the serve path's shape, f32; four copies of the pools (4 x 42 MB)
-    # rotate, so each launch finds its pages out of the 50 MB L2, as
-    # every layer's pages are in a decode step
-    q, pools, pm, pos, window = paged_inputs("qwen-serve", torch.float32,
-                                             seed=1, copies=4)
-    B, K, G, hd, ps, P, _, _, _ = PAGED_CASES["qwen-serve"]
+    # the serve path's shape; then every slot at its last position
+    numbers = time_paged(PAGED_CASES["qwen-serve"], "qwen-serve")
+    numbers["at_balanced_shape"] = time_paged(PAGED_BALANCED,
+                                              "qwen-balanced")
+    numbers["max_abs_err_all_shapes"] = {
+        "float32": max(worst["float32"], numbers["max_abs_err"],
+                       numbers["at_balanced_shape"]["max_abs_err"]),
+        "bfloat16": worst["bfloat16"]}
+    return numbers
+
+
+def time_paged(spec, label: str) -> dict:
+    """``paged_decode`` at ``spec`` in f32, timed against its bound, its
+    plain version and a library yardstick. Four copies of the pools (4 x
+    42 MB at the serve shape) rotate, so each launch finds its pages out
+    of the 50 MB L2, as every layer's pages are in a decode step."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode import (
+        paged_decode, paged_decode_plain, split_plan)
+
+    q, pools, pm, pos, window = paged_inputs(spec, torch.float32, seed=1,
+                                             copies=4)
+    B, K, G, hd, ps, P, _, _, _ = spec
     kp, vp = pools[0]
     out = paged_decode(q, kp, vp, pm, pos, window=window)
     torch.cuda.synchronize()
     err = float((out - paged_decode_plain(q, kp, vp, pm, pos,
                                           window=window)).abs().max())
-    assert err <= PAGED_TOL, err
+    assert err <= PAGED_TOL, (label, err)
     turn = itertools.cycle(pools)
     ms = device_ms(lambda: paged_decode(q, *next(turn), pm, pos,
                                         window=window), iters=400)
@@ -828,23 +934,25 @@ def phase_paged_kernel() -> dict:
     rot = itertools.cycle(kvs)
     library_ms = device_ms(lambda: library(next(rot)), iters=100)
     # the positions the kernel walks: max(0, pos - window + 1) ..
-    # min(pos, P*ps - 1) (window 0 at this shape)
+    # min(pos, P*ps - 1) (window 0 at these shapes)
+    assert window == 0
     live = int((torch.clamp(pos.long(), max=P * ps - 1) + 1).sum())
     bytes_moved = (2 * live * K * hd * kp.element_size()
                    + 2 * q.numel() * 4 + (pm.numel() + pos.numel()) * 4)
     b_ms, b_by = bound(bytes_moved, 4 * live * K * G * hd)
-    log(f"[kernels] paged_decode {PAGED_CASES['qwen-serve'][:7]} f32, "
-        f"{live} live positions: kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, gather + scaled_dot_product_attention "
-        f"{library_ms * 1e3:.2f} us (max |diff| vs kernel {lib_err:.2e}), "
-        f"bound {b_ms * 1e3:.2f} us ({b_by}: {bytes_moved} B at 3.35 TB/s), "
-        f"kernel at {bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err {err:.3e}")
+    plan = split_plan(B, K, G, hd, ps, P, kp.dtype)
+    log(f"[kernels] paged_decode {label} {spec[:7]} f32, {live} live "
+        f"positions, chunk {plan.chunk}, {plan.n_split} splits: kernel "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, gather + "
+        f"scaled_dot_product_attention {library_ms * 1e3:.2f} us (max |diff| "
+        f"vs kernel {lib_err:.2e}), bound {b_ms * 1e3:.2f} us ({b_by}: "
+        f"{bytes_moved} B at 3.35 TB/s), kernel at "
+        f"{bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err {err:.3e}")
     del pools, kvs
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err_all_shapes": {"float32": max(worst["float32"], err),
-                                       "bfloat16": worst["bfloat16"]}}
+            "live_positions": live}
 
 
 def ssd_inputs(shape, dtype, seed=0, copies=1):
@@ -1457,7 +1565,8 @@ def main() -> int:
                 "fused_sgd": "src/repro/kernels/fused_sgd.py:37",
                 "paged_decode": "src/repro/kernels/paged_attn.py:76",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
-    # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
+    # fused_sgd's streaming kernel shares fused_consensus_sgd.cu (and its
+    # SGD step) with fused_consensus_sgd
     sources = {"consensus_mix": "src/repro_torch/csrc/consensus_mix.cu",
                "fused_consensus_sgd":
                    "src/repro_torch/csrc/fused_consensus_sgd.cu",
@@ -1474,8 +1583,8 @@ def main() -> int:
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
             "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
             "max_abs_err_all_shapes": nums["max_abs_err_all_shapes"]}
-        if "at_forward_shape" in nums:
-            entry["at_forward_shape"] = nums["at_forward_shape"]
+        entry.update({key: value for key, value in nums.items()
+                      if key.startswith("at_")})
         kernels.append(entry)
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,9 @@ Ported, all CUDA C++ in ``csrc/``: ``consensus_mix``
 (:mod:`repro_torch.kernels.consensus_mix`, the sim path's D2D mixing),
 ``fused_consensus_sgd`` (:mod:`repro_torch.kernels.fused_consensus_sgd`,
 the scale path's block-end) and ``fused_sgd``
-(:mod:`repro_torch.kernels.fused_sgd`, the one-replica instance of
-``csrc/fused_consensus_sgd.cu``, unwired as in the reference),
+(:mod:`repro_torch.kernels.fused_sgd`, a streaming kernel of its own in
+``csrc/fused_consensus_sgd.cu`` that shares the SGD step, unwired as in
+the reference),
 ``paged_decode`` (:mod:`repro_torch.kernels.paged_decode`, the paged
 serving path's decode attention) and ``ssd_scan``
 (:mod:`repro_torch.kernels.ssd_scan`, the Mamba-2 SSD scan of the ssm

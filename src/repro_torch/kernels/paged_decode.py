@@ -16,7 +16,13 @@ CUDA tensor launches the kernel or raises.
 
 The kernel reads each live key and value row once, so it is bound by
 device memory: the bytes of the live K/V over 3.35 TB/s on an H100 SXM.
-The source note in ``csrc/paged_decode.cu`` gives the design.
+It splits every slot's positions into chunks, one block per (chunk, kv
+head, slot), and the last block of a (slot, kv head) to finish merges
+the chunks' partial softmax states in the same launch. :func:`split_plan`
+picks the chunk and the scratch shape; the source note in
+``csrc/paged_decode.cu`` gives the design. The kernel's arrival counters
+live in one int32 buffer per device, zeroed once and reset by the
+kernel, so launches on one device run on one stream.
 
 Page ids in ``page_map`` must lie in ``[0, num_pages)``; the kernel reads
 them as given (the plain version raises on an index out of range).
@@ -27,6 +33,7 @@ count); a caller resets it to 0 before a run it wants to read.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,9 +42,56 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256             # kMaxHeadDim in csrc/paged_decode.cu
 MAX_GROUP = 16                 # kMaxGroup in csrc/paged_decode.cu
-_MAX_SLOTS = 65_535            # the kernel's grid.y
+MAX_CHUNK = 64                 # kMaxChunk in csrc/paged_decode.cu
+CHUNK_BYTES = 32 * 1024        # the K and V rows one block stages
+_MAX_SLOTS = 65_535            # the kernel's grid.z
 _ENTRY = {torch.float32: "paged_decode_f32",
           torch.bfloat16: "paged_decode_bf16"}
+_ARRIVALS: dict[torch.device, torch.Tensor] = {}   # per device, all zero
+
+
+class SplitPlan(NamedTuple):
+    chunk: int                  # positions a block takes
+    n_split: int                # blocks per (slot, kv head)
+    scratch: tuple              # (B, K, n_split, G, hd + 2) float32
+
+
+def split_plan(B: int, K: int, G: int, hd: int, page_size: int, P: int,
+               dtype: torch.dtype) -> SplitPlan:
+    """The kernel's split of a slot's ``P * page_size`` positions.
+
+    A chunk holds at most MAX_CHUNK positions and CHUNK_BYTES of K and V
+    rows (64 positions at hd 64 in float32, 16 at hd 256), and whole
+    pages when a page fits; ``n_split = ceil(P * page_size / chunk)``.
+    Raises for what the kernel does not take (hd, G or B above its
+    limits)."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{G} query heads per kv head exceed the kernel's "
+                         f"{MAX_GROUP}")
+    if B > _MAX_SLOTS:
+        raise ValueError(f"{B} slots exceed the kernel's {_MAX_SLOTS}")
+    span = P * page_size
+    if span < 1:
+        raise ValueError(f"a slot needs at least one position, got {P} "
+                         f"pages of {page_size}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    chunk = min(MAX_CHUNK, CHUNK_BYTES // (2 * max(hd, 1) * esize), span)
+    if page_size <= chunk:
+        chunk -= chunk % page_size
+    n_split = -(-span // chunk)
+    return SplitPlan(chunk, n_split, (B, K, n_split, G, hd + 2))
+
+
+def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """The device's arrival counters, at least ``n``, all zero between
+    launches (each launch resets those it used)."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[device] = torch.zeros(n, dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -76,9 +130,11 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -135,25 +191,22 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_decode runs on cpu or cuda, not {q.device}")
     B, K, G, hd = q.shape
     ps, P = k_pages.shape[1], page_map.shape[1]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
-    if G > MAX_GROUP:
-        raise ValueError(f"{G} query heads per kv head exceed the kernel's "
-                         f"{MAX_GROUP}")
-    if B > _MAX_SLOTS:
-        raise ValueError(f"{B} slots exceed the kernel's {_MAX_SLOTS}")
+    plan = split_plan(B, K, G, hd, ps, P, k_pages.dtype)
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, page_map,
                                            pos)):
         raise ValueError("paged_decode needs contiguous inputs")
     out = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+    arrivals = _arrivals(q.device, B * K)
     fn = getattr(_library(), _ENTRY[k_pages.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_map.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 B, K, G, hd, ps, P, int(window), hd ** -0.5, stream)
+                 part.data_ptr(), arrivals.data_ptr(), B, K, G, hd, ps, P,
+                 int(window), hd ** -0.5, plan.chunk, plan.n_split, stream)
     if err != 0:
         raise RuntimeError(
             f"paged_decode kernel launch failed with CUDA error {err}")
@@ -164,5 +217,6 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 paged_decode.launches = 0
 
 
-__all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "NEG_INF", "paged_decode",
-           "paged_decode_plain"]
+__all__ = ["CHUNK_BYTES", "MAX_CHUNK", "MAX_GROUP", "MAX_HEAD_DIM",
+           "NEG_INF", "SplitPlan", "paged_decode", "paged_decode_plain",
+           "split_plan"]

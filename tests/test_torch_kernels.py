@@ -27,9 +27,10 @@ from repro_torch.kernels.consensus_mix import (
     MAX_CLUSTER_SIZE, consensus_mix, consensus_mix_plain)
 from repro_torch.kernels.fused_consensus_sgd import (
     fused_consensus_sgd, fused_consensus_sgd_plain)
-from repro_torch.kernels.fused_sgd import fused_sgd, fused_sgd_plain
+from repro_torch.kernels.fused_sgd import fused_sgd, fused_sgd_plain, out_like
 from repro_torch.kernels.paged_decode import (
-    MAX_GROUP, MAX_HEAD_DIM, paged_decode, paged_decode_plain)
+    CHUNK_BYTES, MAX_CHUNK, MAX_GROUP, MAX_HEAD_DIM, paged_decode,
+    paged_decode_plain, split_plan)
 from repro_torch.kernels.ssd_scan import (
     MAX_STATE, P_TILE, ssd_scan, ssd_scan_plain)
 
@@ -92,6 +93,21 @@ def test_fused_sgd_cpu_tensors_take_the_plain_version(dtype, wd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", [0, 1, 3])
+def test_fused_sgd_output_keeps_the_offset_of_w(dtype, skip):
+    # a contiguous view such as big[1:]: the output shares w's offset mod
+    # 16 bytes (so the kernel's 16-byte path still runs), and the CPU
+    # wrapper gives the plain version's values
+    big, gbig = _sgd_inputs((skip + 37,), dtype, "cpu")
+    w, g = big[skip:], gbig[skip:]
+    out = out_like(w)
+    assert out.shape == w.shape and out.dtype == dtype
+    assert out.is_contiguous()
+    assert out.data_ptr() % 16 == w.data_ptr() % 16
+    assert torch.equal(fused_sgd(w, g, 0.01), fused_sgd_plain(w, g, 0.01))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wd", [0.0, 0.1])
 def test_fused_consensus_sgd_cpu_tensors_take_the_plain_version(dtype, wd):
     w, g, W = _fcs_inputs(2, 4, 64, dtype, "cpu")
@@ -143,10 +159,28 @@ PAGED_CASES = {
     "gemma-mqa": (4, 1, 8, 256, 16, 8, 33, 0, [3, 60, None, 127]),
     "starcoder-window": (2, 2, 12, 128, 16, 320, 641, 4096, [4500, 5119]),
 }
+# the kernel's split at its boundaries: 4 slots of 12 pages of 16 (192
+# positions), hd 64, so a chunk of 64 positions (four pages) in f32 and
+# bf16 alike; and a head of 6, whose rows are no whole 16-byte pieces
+_C = split_plan(4, 2, 2, 64, 16, 12, torch.float32).chunk
+SPLIT_CASES = {
+    # live ranges of 1, C - 1, C and C + 1 positions
+    "split-edges": (4, 2, 2, 64, 16, 12, 49, 0, [0, _C - 2, _C - 1, _C]),
+    # windows that start mid-chunk
+    "split-window": (4, 2, 2, 64, 16, 12, 49, _C // 2 + 3,
+                     [_C + 5, 2 * _C + 10, 3 * _C - 1, 40]),
+    # a retired all-dummy slot: every position of dummy page 0 is live
+    "split-retired": (4, 2, 2, 64, 16, 12, 49, 0, [_C + 3, None, 2 * _C, 5]),
+    # windowed rows past their pages: all masked (uniform mean), and a
+    # retired slot whose window still holds 8 positions
+    "split-all-masked": (4, 2, 2, 64, 16, 12, 49, 16,
+                         [3 * _C + 19, None, 100, 3 * _C + 40]),
+    "odd-head": (3, 2, 3, 6, 4, 5, 16, 0, [0, 11, 19]),
+}
 
 
 def _paged_inputs(case, dtype, device, seed=0):
-    B, K, G, hd, ps, P, N, window, pos = PAGED_CASES[case]
+    B, K, G, hd, ps, P, N, window, pos = {**PAGED_CASES, **SPLIT_CASES}[case]
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, K, G, hd)).astype(np.float32)
     kp = rng.normal(size=(N, ps, K, hd)).astype(np.float32)
@@ -174,6 +208,64 @@ def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
         out = paged_decode(*args, window=window)
         assert paged_decode.launches == before
         assert out.dtype == torch.float32 and out.shape == args[0].shape
+        assert torch.equal(out, paged_decode_plain(*args, window=window))
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("hd, ps, P, dtype, chunk, n_split", [
+    (64, 16, 40, torch.float32, 64, 10),       # qwen-serve: four pages
+    (64, 16, 40, torch.bfloat16, 64, 10),
+    (128, 16, 320, torch.float32, 32, 160),    # starcoder-window
+    (128, 16, 320, torch.bfloat16, 64, 80),
+    (256, 16, 8, torch.float32, 16, 8),        # gemma-mqa: one page
+    (256, 16, 8, torch.bfloat16, 32, 4),
+    (8, 4, 3, torch.float32, 12, 1),           # reference: the whole slot
+    (64, 48, 4, torch.float32, 48, 4),         # whole pages of 48
+    (64, 100, 3, torch.float32, 64, 5),        # a page above a chunk
+    (6, 4, 5, torch.bfloat16, 20, 1),          # odd-head
+])
+def test_split_plan(hd, ps, P, dtype, chunk, n_split):
+    B, K, G = 3, 2, 4
+    plan = split_plan(B, K, G, hd, ps, P, dtype)
+    assert (plan.chunk, plan.n_split) == (chunk, n_split)
+    assert plan.scratch == (B, K, n_split, G, hd + 2)
+    # the chunks tile the slot, within the kernel's limits
+    span = P * ps
+    assert (n_split - 1) * chunk < span <= n_split * chunk
+    assert 1 <= chunk <= MAX_CHUNK
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert 2 * chunk * hd * esize <= CHUNK_BYTES or chunk == ps
+    if ps <= chunk:
+        assert chunk % ps == 0
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_run():
+    plan = split_plan(65_535, 16, MAX_GROUP, MAX_HEAD_DIM, 16, 4,
+                      torch.float32)
+    assert plan.chunk == 16
+    with pytest.raises(ValueError, match="head_dim"):
+        split_plan(2, 2, 1, MAX_HEAD_DIM + 1, 16, 4, torch.float32)
+    with pytest.raises(ValueError, match="query heads"):
+        split_plan(2, 2, MAX_GROUP + 1, 64, 16, 4, torch.float32)
+    with pytest.raises(ValueError, match="slots"):
+        split_plan(65_536, 2, 1, 64, 16, 4, torch.float32)
+    with pytest.raises(ValueError, match="at least one position"):
+        split_plan(2, 2, 1, 64, 16, 0, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_cases_cross_the_boundaries(dtype):
+    # the boundary cases cover what they name, in both dtypes, and the
+    # CPU wrapper agrees with the plain version on them
+    spec = SPLIT_CASES["split-edges"]
+    assert split_plan(*spec[:6], dtype).chunk == _C
+    assert sorted(min(p, 191) + 1 for p in spec[8]) == [1, _C - 1, _C,
+                                                        _C + 1]
+    B, K, G, hd, ps, P = PAGED_CASES["starcoder-window"][:6]
+    assert split_plan(B, K, G, hd, ps, P, dtype).n_split > 64
+    for case in SPLIT_CASES:
+        *args, window = _paged_inputs(case, dtype, "cpu")
+        out = paged_decode(*args, window=window)
         assert torch.equal(out, paged_decode_plain(*args, window=window))
         assert torch.isfinite(out).all()
 
@@ -255,7 +347,8 @@ def test_ssd_scan_refuses_bad_inputs_before_dispatch():
 
 
 def test_build_names_the_sources():
-    # fused_sgd launches fused_consensus_sgd.cu's one-replica instance
+    # fused_sgd's streaming kernel lives in fused_consensus_sgd.cu, beside
+    # the kernel whose SGD step it shares
     assert build.sources() == ["consensus_mix", "fused_consensus_sgd",
                                "paged_decode", "ssd_scan"]
     for name in build.sources():
@@ -311,13 +404,41 @@ def test_fused_sgd_kernel_on_card(cuda_device, dtype, wd):
         out = fused_sgd(w, g, eta, weight_decay=wd)
         torch.cuda.synchronize()
         assert fused_sgd.launches == before + 1
-        # the shared kernel's launch counts as fused_sgd's only
+        # a launch of the shared source counts as fused_sgd's only
         assert fused_consensus_sgd.launches == before_fcs
         assert out.dtype == dtype and out.shape == w.shape
+        plain = fused_sgd_plain(w, g, eta, weight_decay=wd)
         np.testing.assert_allclose(
-            out.float().cpu().numpy(),
-            fused_sgd_plain(w, g, eta, weight_decay=wd).float().cpu().numpy(),
+            out.float().cpu().numpy(), plain.float().cpu().numpy(),
             atol=SGD_TOL[dtype], rtol=SGD_TOL[dtype])
+        if dtype == torch.float32:
+            assert torch.equal(out, plain)      # one rounding, the same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_fused_sgd_kernel_at_every_offset_and_tail(cuda_device, dtype, wd):
+    # sizes 1..33 around the vector width (4 f32, 8 bf16), at offsets 0
+    # and 1 (big[1:]: a scalar head, then vectors), and with w and g at
+    # different offsets mod 16 (the scalar loop)
+    eta = torch.tensor(0.01, device=cuda_device)
+    for n in range(1, 34):
+        big, gbig = _sgd_inputs((n + 2,), dtype, cuda_device, seed=n)
+        for w, g in ((big[:n], gbig[:n]), (big[1:n + 1], gbig[1:n + 1]),
+                     (big[1:n + 1], gbig[2:n + 2])):
+            before = fused_sgd.launches
+            out = fused_sgd(w, g, eta, weight_decay=wd)
+            torch.cuda.synchronize()
+            assert fused_sgd.launches == before + 1
+            assert out.data_ptr() % 16 == w.data_ptr() % 16
+            plain = fused_sgd_plain(w, g, eta, weight_decay=wd)
+            if dtype == torch.float32:
+                assert torch.equal(out, plain), (n, w.data_ptr() % 16)
+            else:
+                np.testing.assert_allclose(
+                    out.float().cpu().numpy(), plain.float().cpu().numpy(),
+                    atol=SGD_TOL[dtype], rtol=SGD_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -359,7 +480,7 @@ def test_fused_kernels_refuse_what_they_cannot_run(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("case", sorted(PAGED_CASES) + sorted(SPLIT_CASES))
 def test_paged_decode_kernel_on_card(cuda_device, dtype, case):
     *args, window = _paged_inputs(case, dtype, cuda_device)
     before = paged_decode.launches
@@ -372,6 +493,8 @@ def test_paged_decode_kernel_on_card(cuda_device, dtype, case):
         out.cpu().numpy(),
         paged_decode_plain(*args, window=window).cpu().numpy(),
         atol=1e-5, rtol=0)
+    # the merge's order is fixed: a second launch gives the same bits
+    assert torch.equal(paged_decode(*args, window=window), out)
 
 
 @pytest.mark.cuda
