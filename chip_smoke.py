@@ -19,7 +19,8 @@ caught):
 1. build   — compile every CUDA source of the port with nvcc (sm_90a),
              one nvcc per source, all started together; print ptxas's
              registers, shared memory and spills of every instance of
-             ``fused_sgd_kernel`` and ``paged_decode_kernel``.
+             ``fused_sgd_kernel``, ``paged_decode_kernel``,
+             ``ssd_prep_kernel`` and ``ssd_scan_kernel``.
 2. kernels — each kernel against its plain version on the card:
              ``consensus_mix`` at the shapes of tests/test_kernels.py and
              of the sim path, f32 (atol 1e-5) and bf16 (atol 2e-2);
@@ -45,12 +46,22 @@ caught):
              ``scaled_dot_product_attention`` (two calls). ``ssd_scan``
              at the shapes of tests/test_kernels.py (ragged T = 130
              included; f32 max |Δy| / max |y| < 1e-4 and the final state
-             to 1e-4; bf16 y within 1e-2 of max |y|), chunk 64 against
-             chunk 256, and at the serve path's admission (32 heads x 512
-             tokens) and the forward's (256 x 1024) shapes, f32 and bf16;
-             timed at both main shapes against its bound and its plain
-             version (no single PyTorch call computes the scan), inputs
-             rotated past the L2.
+             to 1e-4; bf16 y within 1e-2 of max |y|), one row of B and C
+             per head, chunk 64 against chunk 256, and at the serve
+             path's admission (32 heads x 512 tokens) and the forward's
+             (256 x 1024) rows; the main paths' grouped calls (B and C
+             ``(1, 512, 128)`` and ``(8, 1024, 128)`` shared by 32 heads)
+             through ``ssd_scan_heads`` (x in the model's layout) and
+             through rows with ``heads_per_group=32``, f32 and bf16, a
+             second launch bitwise equal; timed at both grouped shapes
+             (the median of three readings) in turns with the same kernel
+             behind transposed copies of x, dt and loga, and behind those
+             and per-head copies of B and C, and
+             the plain version (no single PyTorch call computes the
+             scan), inputs rotated past the L2; its share of two bounds:
+             the operations as three TF32 products on the tensor cores
+             (the kernel's, in the kernels line) and in f32 on the CUDA
+             cores.
 3. slice   — ``TTHFTrainer`` on the card, kernel on: 40 steps, with the
              launch counter reset just before; then the same run through
              the ``masked_loop`` backend (same loss history, same
@@ -130,6 +141,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # TF32 on the tensor cores (3xTF32: 3 each)
 
 MAIN_SHAPE = (25, 5, 784 * 7840)   # the NN's w1 leaf over the fleet
 TEST_SHAPES = [(1, 2, 8), (3, 5, 100), (4, 8, 700), (2, 5, 513), (25, 5, 64)]
@@ -183,6 +195,10 @@ SSD_TEST_SHAPES = [(1, 64, 16, 16, 16), (2, 256, 64, 128, 128),
 SSD_MAIN_SHAPES = {"serve": (32, 512, 64, 128, 256),
                    "forward": (256, 1024, 64, 128, 256)}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}     # of max |y|
+# the main paths' grouped calls, (b, H, T, P, S, chunk): B and C (b, T, S)
+# shared by the H heads, x (b, T, H, P) read through strides
+SSD_GROUP_SHAPES = {"serve": (1, 32, 512, 64, 128, 256),
+                    "forward": (8, 32, 1024, 64, 128, 256)}
 # the serve-ssm path: the serve CLI's flags
 SERVE_SSM_ARGV = ["--arch", "mamba2-370m", "--scheduler", "continuous",
                   "--batch", "8", "--prompt-len", "512", "--gen", "128",
@@ -282,7 +298,9 @@ def phase_build() -> None:
             f"chiprun_out/nvcc_{name}.txt)")
     # the kernels redesigned for the card: each instance on its own
     for name, match in (("fused_consensus_sgd", "fused_sgd_kernel"),
-                        ("paged_decode", "paged_decode_kernel")):
+                        ("paged_decode", "paged_decode_kernel"),
+                        ("ssd_scan", "ssd_prep_kernel"),
+                        ("ssd_scan", "ssd_scan_kernel")):
         for kernel, regs, smem, spill in ptxas_entries(
                 reports.get(name, ""), match):
             log(f"[build] ptxas {kernel}: {regs} registers, {smem} B static "
@@ -996,14 +1014,61 @@ def ssd_compare(y, h, yp, hp, dt: str, what) -> tuple[float, float]:
     return err, rel
 
 
+def ssd_group_inputs(shape, dtype, seed=0, copies=1):
+    """[(x (b, T, H, P), dt, loga (b, T, H), B, C (b, T, S))] * copies on
+    the card, in the model's layout: the first from one numpy seed, the
+    others (timing copies) from torch's generator on the card."""
+    import torch
+    b, H, T, P, S, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, T, H, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(b, T, H)).astype(np.float32)
+    loga = (-dt * rng.uniform(0.5, 2.0, size=(b, 1, H))).astype(np.float32)
+    B = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    C = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    cuda = lambda a, d=dtype: torch.from_numpy(a).to("cuda", d)  # noqa
+    sets = [(cuda(x), cuda(dt, torch.float32), cuda(loga, torch.float32),
+             cuda(B), cuda(C))]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(copies - 1):
+        d = torch.rand((b, T, H), generator=gen, device="cuda") * 0.099 + 1e-3
+        sets.append((
+            torch.randn((b, T, H, P), generator=gen, device="cuda").to(dtype),
+            d, -d, (torch.randn((b, T, S), generator=gen, device="cuda")
+                    * 0.3).to(dtype),
+            (torch.randn((b, T, S), generator=gen, device="cuda")
+             * 0.3).to(dtype)))
+    return sets
+
+
+def ssd_work(shape) -> tuple[int, int]:
+    """(bytes, operations) the grouped call needs: x and y, dt and loga
+    and h per row, B and C per group, each read or written once; the
+    causal half of G = C Bᵀ once per (group, chunk), per (row, chunk) the
+    causal half of M X and the carry, and per (row, chunk after the
+    first) the carried-state term (the first chunk starts from zero)."""
+    b, H, T, P, S, Q = shape
+    nc = -(-T // Q)
+    bytes_moved = 4 * (b * H * (2 * T * P + 2 * T + S * P) + b * 2 * T * S)
+    flops = (b * nc * Q * (Q + 1) * S
+             + b * H * (nc * (Q * (Q + 1) * P + 2 * Q * S * P)
+                        + (nc - 1) * 2 * Q * S * P))
+    return bytes_moved, flops
+
+
 def phase_ssd_kernel() -> dict:
     """``ssd_scan`` against its plain version at the reference's shapes,
-    chunk 64 against 256, and at the two main shapes; timed at both main
-    shapes against its bound and its plain version."""
+    one row per head; chunk 64 against 256; the main paths' grouped calls
+    (B and C once per batch element, x in the model's layout) in f32 and
+    bf16; timed at both main shapes against both bounds and the plain
+    scan, beside the same kernel behind transposed copies of x, dt and
+    loga, and behind those and per-head copies of B and C (what the
+    model's wrapper did before B and C were shared by a group)."""
     import itertools
 
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (
+        ssd_chunked, ssd_scan, ssd_scan_heads, ssd_scan_plain)
 
     worst = {}
     shapes = SSD_TEST_SHAPES + list(SSD_MAIN_SHAPES.values())
@@ -1031,41 +1096,97 @@ def phase_ssd_kernel() -> dict:
         f"{float((y64 - y256).abs().max()):.3e}, h max|diff| "
         f"{float((h64 - h256).abs().max()):.3e} (rtol/atol 1e-4)")
 
+    def rows(t, b, H):        # (b, T, H, ...) -> (b*H, T, ...) copies
+        return t.transpose(1, 2).reshape(b * H, *t.shape[1:2],
+                                         *t.shape[3:]).contiguous()
+
+    # the main paths' grouped calls: the model's layout through strides,
+    # and rows with heads_per_group = H, against ssd_chunked
+    for i, (name, shape) in enumerate(SSD_GROUP_SHAPES.items()):
+        b, H, T, P, S, Q = shape
+        for dt in ("float32", "bfloat16"):
+            (x, d, la, B, C), = ssd_group_inputs(shape, getattr(torch, dt),
+                                                 seed=20 + i)
+            y, h = ssd_scan_heads(x, d, la, B, C, chunk=Q)
+            y2, h2 = ssd_scan_heads(x, d, la, B, C, chunk=Q)
+            yr, hr = ssd_scan(rows(x, b, H), rows(d, b, H), rows(la, b, H),
+                              B, C, chunk=Q, heads_per_group=H)
+            torch.cuda.synchronize()
+            assert torch.equal(y, y2) and torch.equal(h, h2), (name, dt)
+            yp, hp = ssd_chunked(x, d, la, B, C, chunk=Q)
+            err, rel = ssd_compare(y, h, yp, hp, dt, (name, "heads"))
+            err_r, _ = ssd_compare(
+                yr, hr, rows(yp, b, H), hp.reshape(b * H, S, P), dt,
+                (name, "rows"))
+            worst[dt] = max(worst[dt], err, err_r)
+            log(f"[kernels] ssd_scan grouped {name} {shape} {dt}: "
+                f"ssd_scan_heads max_abs_err={err:.3e} (over max|y| "
+                f"{rel:.3e}, tol {SSD_TOL[dt]}), h max|diff| "
+                f"{float((h - hp).abs().max()):.3e}, a second launch "
+                f"bitwise equal; rows with heads_per_group={H} "
+                f"max_abs_err={err_r:.3e}")
+            del x, d, la, B, C, y, h, y2, h2, yr, hr, yp, hp
+
     numbers = {}
-    for name, shape in SSD_MAIN_SHAPES.items():
-        BH, T, P, S, Q = shape
-        # inputs rotated so that every launch reads them from HBM: four
-        # copies of the 26 MB serve shape, two of the 413 MB forward one
-        sets = ssd_inputs(shape, torch.float32, seed=50,
-                          copies=4 if name == "serve" else 2)
-        y, h = ssd_scan(*sets[0], chunk=Q)
+    for name, shape in SSD_GROUP_SHAPES.items():
+        b, H, T, P, S, Q = shape
+        # inputs rotated so that every launch reads them from HBM: 16 sets
+        # of the 4.8 MB serve shape, two of the 77 MB forward one
+        sets = ssd_group_inputs(shape, torch.float32, seed=50,
+                                copies=16 if name == "serve" else 2)
+        y, h = ssd_scan_heads(*sets[0], chunk=Q)
         torch.cuda.synchronize()
-        err, rel = ssd_compare(y, h, *ssd_scan_plain(*sets[0], chunk=Q),
+        err, rel = ssd_compare(y, h, *ssd_chunked(*sets[0], chunk=Q),
                                "float32", shape)
+        del y, h
         turn = itertools.cycle(sets)
-        ms = device_ms(lambda: ssd_scan(*next(turn), chunk=Q),
-                       iters=200 if name == "serve" else 20)
-        plain_ms = device_ms(lambda: ssd_scan_plain(*next(turn), chunk=Q),
+
+        def copies(x, d, la, B, C):      # x, dt and loga transposed to rows
+            return ssd_scan(rows(x, b, H), rows(d, b, H), rows(la, b, H),
+                            B, C, chunk=Q, heads_per_group=H)
+
+        def per_row(x, d, la, B, C):     # and B, C repeated for every head
+            rep = lambda t: t[:, None].expand(  # noqa: E731
+                b, H, T, S).reshape(b * H, T, S).contiguous()
+            return ssd_scan(rows(x, b, H), rows(d, b, H), rows(la, b, H),
+                            rep(B), rep(C), chunk=Q)
+
+        iters = 200 if name == "serve" else 20
+        kernel = lambda: ssd_scan_heads(*next(turn), chunk=Q)  # noqa: E731
+        # the kernel timed three times, in turns with the two variants; its
+        # median is the number kept
+        runs = [device_ms(kernel, iters)]
+        copies_ms = device_ms(lambda: copies(*next(turn)), iters)
+        runs.append(device_ms(kernel, iters))
+        per_row_ms = device_ms(lambda: per_row(*next(turn)), iters)
+        runs.append(device_ms(kernel, iters))
+        ms = float(np.median(runs))
+        plain_ms = device_ms(lambda: ssd_chunked(*next(turn), chunk=Q),
                              iters=20 if name == "serve" else 4, warmup=1)
-        # x and y, dt and loga, B and C (contiguous, as the model's
-        # wrapper makes them) read or written once; the final state
-        bytes_moved = 4 * (2 * BH * T * P + 2 * BH * T + 2 * BH * T * S
-                           + BH * S * P)
-        # the causal triangle of C Bᵀ and of M X (u <= t, Q(Q+1)/2
-        # entries; the kernel skips the masked half), the carried-state
-        # term and the state carry
-        flops = BH * (T // Q) * (Q * (Q + 1) * S + Q * (Q + 1) * P
-                                 + 4 * Q * S * P)
-        b_ms, b_by = bound(bytes_moved, flops)
-        log(f"[kernels] ssd_scan {name} {shape} f32: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{flops} FLOP at 67 TFLOP/s, {bytes_moved} B at 3.35 TB/s), "
-            f"kernel at {flops / ms / 1e9:.1f} GFLOP/s, no single PyTorch "
-            f"call computes the scan, max_abs_err {err:.3e} (over max|y| "
-            f"{rel:.3e})")
-        numbers[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by}
-        del sets, y, h
+        bytes_moved, flops = ssd_work(shape)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        f32_ms = max(bytes_ms, flops / F32_FLOPS_PER_S * 1e3)
+        tf32_ms = max(bytes_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
+        log(f"[kernels] ssd_scan {name} {shape} f32 (B/C ({b}, {T}, {S}), "
+            f"{H} heads): ssd_scan_heads {ms:.4f} ms (median of "
+            f"{', '.join(f'{t:.4f}' for t in runs)}; two launches a call), "
+            f"behind transposed copies of x, dt, "
+            f"loga {copies_ms:.4f} ms, behind those and per-head B, C "
+            f"{per_row_ms:.4f} ms, plain ssd_chunked {plain_ms:.4f} ms; "
+            f"{flops} FLOP and {bytes_moved} B: 3xTF32 bound {tf32_ms:.4f} "
+            f"ms (3 x {flops} at 495 TFLOP/s; the products run on the "
+            f"tensor cores), kernel at {tf32_ms / ms:.3f} of it; f32 bound "
+            f"{f32_ms:.4f} ms (67 TFLOP/s), kernel at {f32_ms / ms:.3f} of "
+            f"it; bytes {bytes_ms:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"no single PyTorch call computes the scan; max_abs_err "
+            f"{err:.3e} (over max|y| {rel:.3e})")
+        numbers[name] = {"max_abs_err": err, "ms": ms, "ms_runs": runs,
+                         "plain_ms": plain_ms, "bound_ms": tf32_ms,
+                         "bound_by": "operations" if tf32_ms > bytes_ms
+                         else "bytes",
+                         "bound_f32_ms": f32_ms, "copies_ms": copies_ms,
+                         "per_row_ms": per_row_ms}
+        del sets
         torch.cuda.empty_cache()
     return dict(numbers["serve"], library_ms=None,
                 max_abs_err_all_shapes=worst,

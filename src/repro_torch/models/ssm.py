@@ -11,7 +11,10 @@ Two SSD execution paths, as in the reference:
   state; it has a gradient.
 * ``use_kernel=True`` (the reference's ``use_pallas``): the
   ``ssd_scan`` kernel of :mod:`repro_torch.kernels.ssd_scan`, forward
-  only and from a zero state.
+  only and from a zero state, through ``ssd_scan_heads``: the kernel
+  reads the (b, T, H, ·) layout through strides and B and C as they are,
+  shared by the heads (the reference repeats B and C for every head and
+  transposes x, dt and loga into rows, as its TPU kernel needs).
 
 Decode: the O(1) single-step state update (:func:`decode_ssm`). The
 reference's sharding hints in ``decode_ssm`` are no-ops on one device
@@ -22,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_heads
 from repro_torch.models.common import Px, dense_init, ones_init, _normal
 
 
@@ -76,25 +79,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
     y = sum(xp[:, i:i + T] * w[i].to(x.dtype) for i in range(K))
     new_state = xp[:, xp.shape[1] - (K - 1):] if K > 1 else x[:, :0]
     return y, new_state
-
-
-def ssd_scan_heads(x, dt, loga, B, C, chunk: int = 256):
-    """:func:`ssd_chunked`'s layout (zero initial state) through the
-    ``ssd_scan`` kernel's wrapper: heads folded into rows (b·H, T, ·),
-    B and C repeated for every head and made contiguous, as
-    ``repro/models/ssm.py``'s ``use_pallas`` branch."""
-    b, T, H, P = x.shape
-    S = B.shape[-1]
-    rows = b * H
-    ybh, h = ssd_scan(
-        x.transpose(1, 2).reshape(rows, T, P).contiguous(),
-        dt.transpose(1, 2).reshape(rows, T).contiguous(),
-        loga.transpose(1, 2).reshape(rows, T).contiguous(),
-        B[:, None].expand(b, H, T, S).reshape(rows, T, S).contiguous(),
-        C[:, None].expand(b, H, T, S).reshape(rows, T, S).contiguous(),
-        chunk=chunk)
-    return (ybh.reshape(b, H, T, P).transpose(1, 2),
-            h.reshape(b, H, S, P))
 
 
 def ssm_sequence(p, cfg, x: torch.Tensor, *, conv0=None, keep=None,

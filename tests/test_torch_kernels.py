@@ -32,7 +32,8 @@ from repro_torch.kernels.paged_decode import (
     CHUNK_BYTES, MAX_CHUNK, MAX_GROUP, MAX_HEAD_DIM, paged_decode,
     paged_decode_plain, split_plan)
 from repro_torch.kernels.ssd_scan import (
-    MAX_STATE, P_TILE, ssd_scan, ssd_scan_plain)
+    MAX_STATE, P_TILE, scratch_floats, smem_bytes, ssd_chunked, ssd_scan,
+    ssd_scan_heads, ssd_scan_plain, state_splits)
 
 SHAPES = [(1, 2, 8), (3, 5, 100), (4, 8, 700), (2, 5, 513), (25, 5, 64),
           (25, 5, 10), (2, MAX_CLUSTER_SIZE, 300)]
@@ -346,6 +347,110 @@ def test_ssd_scan_refuses_bad_inputs_before_dispatch():
         ssd_scan(x, dt, loga.requires_grad_(), B, C)
 
 
+# grouped calls: (b, H, T, P, S, chunk) — B and C shared by the H heads of
+# a batch element: a reduced mamba2 layer, ragged T, and a chunk of 512
+# (the kernel's two passes of 256 rows); on the card also the serve path's
+# admission and the forward shape
+SSD_GROUP_SHAPES = [(2, 3, 45, 16, 16, 16), (2, 4, 130, 32, 64, 64),
+                    (1, 8, 256, 64, 128, 128), (1, 4, 700, 32, 64, 512)]
+SSD_GROUP_CARD_SHAPES = [(1, 32, 512, 64, 128, 256),
+                         (8, 32, 1024, 64, 128, 256)]
+
+
+def _ssd_group_inputs(b, H, T, P, S, dtype, device, seed=0):
+    """x (b*H, T, P), dt/loga (b*H, T), B/C (b, T, S)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b * H, T, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(b * H, T)).astype(np.float32)
+    loga = (-dt * rng.uniform(0.5, 2.0, size=(b * H, 1))).astype(np.float32)
+    B = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    C = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    to = lambda a, d=dtype: torch.from_numpy(a).to(device, d)  # noqa: E731
+    return (to(x), to(dt, torch.float32), to(loga, torch.float32), to(B),
+            to(C))
+
+
+def _to_heads(x, dt, loga, b, H):
+    """(b*H, T, ...) rows -> the model's (b, T, H, ...) layout."""
+    heads = lambda t: t.reshape(b, H, *t.shape[1:]).transpose(1, 2)  # noqa
+    return (heads(x).contiguous(), heads(dt).contiguous(),
+            heads(loga).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_GROUP_SHAPES)
+def test_ssd_scan_grouped_equals_repeated_rows(dtype, shape):
+    """heads_per_group = H with B/C (b, T, S) is the per-row call with B/C
+    repeated for every head (1e-6), on the CPU and counting no launch; and
+    ssd_scan_heads on the model's layout is ssd_chunked with H heads."""
+    b, H, T, P, S, chunk = shape
+    x, dt, loga, B, C = _ssd_group_inputs(b, H, T, P, S, dtype, "cpu")
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dt, loga, B, C, chunk=chunk, heads_per_group=H)
+    rep = lambda t: t.repeat_interleave(H, dim=0)  # noqa: E731
+    yr, hr = ssd_scan(x, dt, loga, rep(B), rep(C), chunk=chunk)
+    assert y.dtype == dtype and y.shape == (b * H, T, P)
+    assert h.dtype == torch.float32 and h.shape == (b * H, S, P)
+    np.testing.assert_allclose(y.float().numpy(), yr.float().numpy(),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(h.numpy(), hr.numpy(), rtol=0, atol=1e-6)
+    xh, dth, lah = _to_heads(x, dt, loga, b, H)
+    yh, hh = ssd_scan_heads(xh, dth, lah, B, C, chunk=chunk)
+    yc, hc = ssd_chunked(xh, dth, lah, B, C, chunk=chunk)
+    assert torch.equal(yh, yc) and torch.equal(hh, hc)
+    assert torch.equal(yh.transpose(1, 2).reshape(b * H, T, P), y)
+    assert torch.equal(hh.reshape(b * H, S, P), h)
+    assert ssd_scan.launches == before
+
+
+def test_ssd_scan_refuses_a_bad_group_before_dispatch():
+    x, dt, loga, B, C = _ssd_group_inputs(2, 4, 32, 16, 16, torch.float32,
+                                          "cpu")
+    for bad in (0, -1, 2.0, None):
+        with pytest.raises(ValueError, match="heads_per_group must be"):
+            ssd_scan(x, dt, loga, B, C, heads_per_group=bad)
+    with pytest.raises(ValueError, match="B must be"):
+        ssd_scan(x, dt, loga, B, C, heads_per_group=3)      # 2 x 3 != 8
+    with pytest.raises(ValueError, match="B must be"):
+        ssd_scan(x, dt, loga, B, C)                         # 2 rows, not 8
+    with pytest.raises(ValueError, match="B must be"):
+        ssd_scan(x, dt, loga, B[:1], C[:1], heads_per_group=4)
+    with pytest.raises(ValueError, match="C must match"):
+        ssd_scan(x, dt, loga, B, C[:, :16], heads_per_group=4)
+    xh, dth, lah = _to_heads(x, dt, loga, 2, 4)
+    with pytest.raises(ValueError, match=r"\(b, T, H, P\)"):
+        ssd_scan_heads(x, dt, loga, B, C)
+    with pytest.raises(ValueError, match="dt must be"):
+        ssd_scan_heads(xh, dth[:, :8], lah, B, C)
+    with pytest.raises(ValueError, match="B must be"):
+        ssd_scan_heads(xh, dth, lah, B[:1], C)
+    with pytest.raises(TypeError, match="like x"):
+        ssd_scan_heads(xh, dth, lah, B.bfloat16(), C)
+
+
+def test_ssd_scan_sizes_its_scratch():
+    """The scratch holds G once per group and chunk (Qp^2 floats, Qp the
+    chunk rounded up to 32: 512 KB at the serve shape), every row's
+    chunk states (S x P floats each, in parts) and their total decays."""
+    assert scratch_floats(1, 32, 512, 64, 128, 256) == (
+        2 * 256 * 256 + 32 * 2 * (128 * 64 + 1))
+    assert scratch_floats(8, 32, 1024, 64, 128, 256) == (
+        8 * 4 * 256 * 256 + 256 * 4 * (128 * 64 + 1))
+    assert scratch_floats(2, 1, 130, 32, 64, 64) == (
+        2 * 3 * 64 * 64 + 2 * 3 * (64 * 32 + 1))
+    assert scratch_floats(1, 3, 45, 16, 16, 16) == (
+        3 * 32 * 32 + 3 * 3 * (16 * 16 + 1))
+    assert scratch_floats(1, 32, 512, 64, 128, 256, splits=2) == (
+        2 * 256 * 256 + 32 * 2 * (2 * 128 * 64 + 1))
+    # a chunk's state is summed in parts where whole chunks leave the card
+    # short of blocks: 2 at the serve shape on 132 SMs, 1 at the forward
+    # shape; parts divide the chunk's 16-row strips
+    assert state_splits(32, 64, 512, 256, 132) == 2
+    assert state_splits(256, 64, 1024, 256, 132) == 1
+    assert state_splits(2, 16, 64, 16, 132) == 2        # Qp 32: two strips
+    assert state_splits(1, 16, 256, 256, 132) == 8
+
+
 def test_build_names_the_sources():
     # fused_sgd's streaming kernel lives in fused_consensus_sgd.cu, beside
     # the kernel whose SGD step it shares
@@ -534,6 +639,52 @@ def test_ssd_scan_kernel_on_card(cuda_device, dtype):
             (BH, T, P, S, chunk, err, scale)
         np.testing.assert_allclose(h.cpu().numpy(), hp.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_GROUP_SHAPES + SSD_GROUP_CARD_SHAPES)
+def test_ssd_scan_grouped_kernel_on_card(cuda_device, dtype, shape):
+    """The grouped call (B/C once per batch element) and ssd_scan_heads
+    on the model's layout against ssd_chunked, at the test shapes, the
+    serve path's admission and the forward shape's rows; a second launch
+    gives the same bits."""
+    b, H, T, P, S, chunk = shape
+    x, dt, loga, B, C = _ssd_group_inputs(b, H, T, P, S, dtype, cuda_device,
+                                          seed=3)
+    xh, dth, lah = _to_heads(x, dt, loga, b, H)
+    yp, hp = ssd_chunked(xh, dth, lah, B, C, chunk=chunk)
+    yp = yp.transpose(1, 2).reshape(b * H, T, P)
+    hp = hp.reshape(b * H, S, P)
+    scale = float(yp.float().abs().max())
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * scale
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dt, loga, B, C, chunk=chunk, heads_per_group=H)
+    y2, h2 = ssd_scan(x, dt, loga, B, C, chunk=chunk, heads_per_group=H)
+    yh, hh = ssd_scan_heads(xh, dth, lah, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 3
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert yh.shape == (b, T, H, P) and hh.shape == (b, H, S, P)
+    for yy, hhh in ((y, h), (yh.transpose(1, 2).reshape(b * H, T, P),
+                             hh.reshape(b * H, S, P))):
+        assert yy.dtype == dtype
+        err = float((yy.float() - yp.float()).abs().max())
+        assert err <= tol, (shape, err, scale)
+        np.testing.assert_allclose(hhh.cpu().numpy(), hp.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_shared_memory_fits_two_blocks_an_sm(cuda_device):
+    """The CUDA source's layouts, read through the library: at S 128 and Q
+    256 in f32 the larger block takes 80 KB, so that two fit an H100 SM
+    (228 KB, 1 KB reserved a block); bf16 takes less, and a 4096-row
+    chunk more than a block may have."""
+    assert smem_bytes(128, 256) == 81_920
+    assert 2 * (smem_bytes(128, 256) + 1024) <= 233_472
+    assert smem_bytes(128, 256, 2) < smem_bytes(128, 256)
+    assert smem_bytes(16, 4096) > 232_448
 
 
 @pytest.mark.cuda

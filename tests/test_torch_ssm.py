@@ -35,7 +35,8 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import ssm
 from repro_torch.models.common import tree_items, tree_map
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    ssd_scan, ssd_scan_heads, ssd_scan_plain)
 
 ATOL = 1e-5
 
@@ -108,6 +109,43 @@ def test_ssd_scan_plain_state_carry_across_chunks():
                            B.bfloat16().float(), C.bfloat16().float(),
                            chunk=64)
     assert torch.equal(yb, yr.bfloat16())
+
+
+@pytest.mark.parametrize("b,H,T,P,S,chunk", [(2, 3, 45, 8, 16, 16),
+                                             (1, 4, 130, 32, 64, 64)])
+def test_grouped_scan_matches_reference(b, H, T, P, S, chunk):
+    """B and C once per batch element: ssd_scan(heads_per_group=H) on rows
+    and ssd_scan_heads on the model's (b, T, H, P) layout against the
+    reference's use_pallas branch (x, dt, loga folded into rows, B and C
+    repeated per head, the Pallas kernel in interpret mode) and the
+    sequential oracle; on the CPU both count no launch."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(b, T, H, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(b, T, H)).astype(np.float32)
+    loga = (-dt * rng.uniform(0.5, 2.0, size=(1, 1, H))).astype(np.float32)
+    B = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    C = (rng.normal(size=(b, T, S)) * 0.3).astype(np.float32)
+    fold = lambda a: a.transpose(0, 2, 1, *range(3, a.ndim)).reshape(  # noqa
+        b * H, T, *a.shape[3:])
+    rep = lambda a: np.repeat(a, H, axis=0)  # noqa: E731
+    rows = (fold(x), fold(dt), fold(loga), rep(B), rep(C))
+    yk, hk = j_ops.ssd_scan(*map(jnp.asarray, rows), chunk=chunk)
+    yr, hr = j_ref.ssd_scan_ref(*map(jnp.asarray, rows))
+    before = ssd_scan.launches
+    y, h = ssd_scan(*map(torch.from_numpy, rows[:3]), torch.from_numpy(B),
+                    torch.from_numpy(C), chunk=chunk, heads_per_group=H)
+    yh, hh = ssd_scan_heads(*map(torch.from_numpy, (x, dt, loga, B, C)),
+                            chunk=chunk)
+    assert ssd_scan.launches == before
+    assert yh.shape == (b, T, H, P) and hh.shape == (b, H, S, P)
+    y_heads = yh.numpy().transpose(0, 2, 1, 3).reshape(b * H, T, P)
+    for yy, hhh in ((y.numpy(), h.numpy()),
+                    (y_heads, hh.numpy().reshape(b * H, S, P))):
+        assert _rel(yy, yk) < 1e-4 and _rel(yy, yr) < 1e-4
+        np.testing.assert_allclose(hhh, np.asarray(hk), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(hhh, np.asarray(hr), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("with_h0", [False, True])

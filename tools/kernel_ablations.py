@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 tools/kernel_ablations.py
 
-It builds variants of ``csrc/paged_decode.cu`` and
-``csrc/fused_consensus_sgd.cu``, each with one part of the kernel taken
+It builds variants of ``csrc/paged_decode.cu``,
+``csrc/fused_consensus_sgd.cu`` and ``csrc/ssd_scan.cu``, each with one
+part of the kernel taken
 out, with the port's nvcc flags (into ``<build dir>/ablations``), and
 times them in turns (A B C ... C B A, twice) beside the kernel as built,
 at the shapes of ``chip_smoke.py``:
@@ -25,12 +26,24 @@ at the shapes of ``chip_smoke.py``:
   thread); *two vectors a thread*; *few waves* (the grid capped at 8
   blocks an SM, each block striding over many tiles); and
   ``torch.add(w, g, alpha=-eta)``.
+- ``ssd_scan`` at the main paths' grouped calls (B/C ``(1, 512, 128)``
+  and ``(8, 1024, 128)``, 32 heads, x in the model's layout), inputs
+  rotated past the L2: *as built*; *no first launch* (the scan reads
+  whatever the scratch holds for G and the chunk states); *no chunk
+  states* (the first launch forms G only); *whole-chunk states* (one
+  block a chunk's state, not the wrapper's parts); *no carried-state
+  term* (no C stages); *no cp.async overlap* (each stage waits for every
+  copy issued); *no tensor-core products*
+  (every ``mma.sync`` an empty asm statement, its operands still
+  formed); *no early launch* (the scan launched after the first grid
+  ends, not beside it); *exit at once* (both kernels leave at their
+  start); and an empty launch.
 
 Each patch names the line it replaces and fails if the line is gone, so
 an edited source breaks this script loudly rather than quietly. It
 prints the card's name and power limit, one line a measurement and a
-JSON object of the means (µs for ``paged_decode``, ms for ``fused_sgd``)
-as its last line.
+JSON object of the means (µs for ``paged_decode`` and ``ssd_scan``, ms
+for ``fused_sgd``) as its last line.
 """
 from __future__ import annotations
 
@@ -66,6 +79,39 @@ SGD = {
                    "132 * 8);")],
 }
 
+SSD = {
+    "as built": [],
+    "no first launch": [("  ssd_prep_kernel<T><<<",
+                         "  if (Tn < 0) ssd_prep_kernel<T><<<")],
+    "no chunk states": [
+        ("  const int64_t n_state = rows * (P / kPT) * nc * nsplit;",
+         "  const int64_t n_state = 0;")],
+    "whole-chunk states": [
+        ("           int hpg, int Tn, int P, int S, int Q, int nsplit,\n"
+         "           const Strides& st, void* stream) {",
+         "           int hpg, int Tn, int P, int S, int Q, int nsplit_in,\n"
+         "           const Strides& st, void* stream) {\n"
+         "  const int nsplit = nsplit_in > 0 ? 1 : 0;")],
+    "no carried-state term": [
+        ("  const int nC = c > 0 ? Sp / kKS : 0;",
+         "  const int nC = c < 0 ? Sp / kKS : 0;")],
+    "no cp.async overlap": [("    cp_wait<kSlots - 1>();",
+                             "    cp_wait<0>();")],
+    "no tensor-core products": [
+        ('  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "',
+         '  asm("// "')],
+    "no early launch": [
+        ("  attr[0].val.programmaticStreamSerializationAllowed = 1;",
+         "  attr[0].val.programmaticStreamSerializationAllowed = 0;")],
+    "exit at once": [
+        ("  // the Gram grid's G and the chunk states are read from here on",
+         "  if (Tn > 0) return;"),
+        ("  const int nc = (Tn + Q - 1) / Q;\n  if (static_cast<int>(blockIdx.x)"
+         " < n_gram) {",
+         "  const int nc = (Tn + Q - 1) / Q;\n  if (Tn > 0) return;\n"
+         "  if (static_cast<int>(blockIdx.x) < n_gram) {")],
+}
+
 
 def patched(source: Path, patches) -> str:
     text = source.read_text()
@@ -83,7 +129,7 @@ def build_variants() -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, variants in (("paged_decode", PAGED),
-                           ("fused_consensus_sgd", SGD)):
+                           ("fused_consensus_sgd", SGD), ("ssd_scan", SSD)):
         for i, (variant, patches) in enumerate(variants.items()):
             src = out_dir / f"{name}_{i}.cu"
             src.write_text(patched(build.CSRC / f"{name}.cu", patches))
@@ -117,6 +163,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_sgd as fs
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ss
 
     if not torch.cuda.is_available():
         print("kernel_ablations: no CUDA device", file=sys.stderr)
@@ -134,7 +181,7 @@ def main() -> int:
                 build.load = load
         return call
 
-    result = {"paged_decode_us": {}, "fused_sgd_ms": {}}
+    result = {"paged_decode_us": {}, "fused_sgd_ms": {}, "ssd_scan_us": {}}
     for label, spec in (("serve", cs.PAGED_CASES["qwen-serve"]),
                         ("balanced", cs.PAGED_BALANCED)):
         q, pools, pm, pos, window = cs.paged_inputs(spec, torch.float32,
@@ -152,6 +199,26 @@ def main() -> int:
                   f"{' '.join(f'{t:.2f}' for t in ts)} us, mean "
                   f"{np.mean(ts):.2f} us", flush=True)
         del pools
+        torch.cuda.empty_cache()
+
+    for label, shape in cs.SSD_GROUP_SHAPES.items():
+        sets = cs.ssd_group_inputs(shape, torch.float32, seed=50,
+                                   copies=16 if label == "serve" else 2)
+        turn = itertools.cycle(sets)
+        calls = {v: with_lib(lambda: ss.ssd_scan_heads(*next(turn),
+                                                       chunk=shape[-1]),
+                             libs["ssd_scan", v]) for v in SSD}
+        calls["empty launch"] = lambda: torch.cuda._sleep(0)
+        iters = 200 if label == "serve" else 10
+        times = in_turns(calls,
+                         lambda fn: cs.device_ms(fn, iters=iters) * 1e3)
+        result["ssd_scan_us"][label] = {}
+        for name, ts in times.items():
+            result["ssd_scan_us"][label][name] = float(np.mean(ts))
+            print(f"ssd_scan {label} {shape} f32 {name}: "
+                  f"{' '.join(f'{t:.2f}' for t in ts)} us, mean "
+                  f"{np.mean(ts):.2f} us", flush=True)
+        del sets
         torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda").manual_seed(7)
