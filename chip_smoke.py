@@ -5,13 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's four main paths — the paper's Algorithm 1 in
+It drives the port's six main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
-the 784-7840-10 NN), TT-HF as the scale-mode sync strategy on the
-full-size qwen1.5-0.5b (24 layers, d 1024, vocabulary 151,936), paged
-continuous-batching serving of the same model, and continuous-batching
-serving of the full-size mamba2-370m (48 Mamba-2 layers, d 1024, 32 SSD
-heads of 64, state 128) — and holds every kernel of those paths against
+the 784-7840-10 NN), the same under the four dynamic netsim scenarios,
+TT-HF as the scale-mode sync strategy on the full-size qwen1.5-0.5b (24
+layers, d 1024, vocabulary 151,936) and on the full-size mamba2-370m (48
+Mamba-2 layers, d 1024, 32 SSD heads of 64, state 128), paged
+continuous-batching serving of qwen1.5-0.5b, and continuous-batching
+serving of mamba2-370m — and holds every kernel of those paths against
 its plain PyTorch version.
 Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
@@ -28,8 +29,9 @@ caught):
              tests/test_kernels.py with wd in {0, 0.1} (atol 1e-6 in f32,
              1e-2 in bf16; ``fused_sgd`` bitwise equal in f32, also at
              every size 1..33 at offsets 0 and 1 and with w and g at
-             other offsets mod 16) and at the scale path's flat replica
-             buffer, f32. At the main paths' shapes it times each kernel,
+             other offsets mod 16) and at the scale paths' flat replica
+             buffers (qwen1.5-0.5b's and mamba2-370m's), f32. At the main
+             paths' shapes it times each kernel,
              its plain version and a library yardstick the port never
              calls (``torch.bmm`` with the precomputed ``V^Γ``;
              ``torch.add`` with ``alpha=-η``, in turns with the kernel;
@@ -68,6 +70,14 @@ caught):
              ledger), the SVM, and Remark-1 adaptive Γ (kernel and
              ``masked_loop``, held against each other); and a small run
              on the card against the same run on the CPU.
+3b. slice-netsim — the same NN under each dynamic netsim scenario
+             (``markov_links``, ``device_churn``, ``stragglers``,
+             ``flash_crowd``) for 60 steps, each consensus event through
+             ``consensus_mix`` with the event's V (48 launches a run, the
+             counter reset just before each), held to the same run
+             through ``masked_loop`` (loss rtol 1e-4; gamma_used,
+             active_devices and the ledger exactly); and the ``static``
+             scenario equal to phase 3's run without one, exactly.
 4. scale   — ``ScaleTrainer`` on qwen1.5-0.5b at full size with the
              scale CLI's defaults (4 replicas in clusters of 2, batch 16
              per replica, seq 128, τ 20, consensus every 5, Γ 2, f32)
@@ -78,6 +88,12 @@ caught):
              ledger, the whole global model within atol 1e-5); and a
              reduced qwen run on the card against the same run on the
              CPU (loss rtol 1e-4).
+4b. scale-ssm — the same on the full-size mamba2-370m (the gradient
+             through the plain chunked scan: ``ssd_scan`` is forward
+             only, and its counter must stay 0): 2 fused intervals after
+             a warm-up (8 ``fused_consensus_sgd`` launches), the per-leaf
+             step held to it, and a reduced mamba2 on the card against
+             the CPU.
 5. serve   — ``PagedContinuousScheduler`` on qwen1.5-0.5b at full size
              (random weights from seed 0, f32 weights and cache) through
              the serve CLI's trace (``launch/serve.py::make_arrivals``:
@@ -121,9 +137,10 @@ kernels' numbers before the last line, and as the last line
 (TF32 off for matmul and cuDNN). Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 
-``--profile`` adds one profiled 20-step run of the sim path, one
-profiled interval of the scale path and one profiled trace of each serve
-path, and prints the device time by kernel and the device's idle share.
+``--profile`` adds one profiled 20-step run of the sim path (static and
+under ``device_churn``), one profiled interval of each scale path and one
+profiled trace of each serve path, and prints the device time by kernel
+and the device's idle share.
 """
 from __future__ import annotations
 
@@ -153,6 +170,9 @@ FCS_TEST_SHAPES = [(2, 4, 64), (4, 2, 937), (1, 8, 128)]
 SGD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # the scale path: qwen1.5-0.5b's flat (R, P) buffer, R = 4 in clusters of 2
 QWEN_P = 464_118_784
+# mamba2-370m's flat (R, P) buffer: 368,285,184 parameters, already a
+# multiple of 128 (no pad)
+MAMBA2_P = 368_285_184
 SCALE_LR = 2e-3                    # the scale CLI's --lr
 SCALE_BATCH = 16                   # the scale CLI's --batch (per replica)
 # paged_decode: name -> (B, K, G, hd, page_size, P, num_pages, window,
@@ -540,6 +560,46 @@ def phase_fused_kernels() -> dict:
             "bfloat16": worst["fused_sgd"]["bfloat16"]}}
     del w, g, w2, g2
     torch.cuda.empty_cache()
+
+    # the scale-ssm path's block end: mamba2-370m's flat (4, P) buffer
+    w = torch.randn((2, 2, MAMBA2_P), generator=gen, device="cuda")
+    g = torch.randn((2, 2, MAMBA2_P), generator=gen, device="cuda")
+    out = fused_consensus_sgd(w, g, W, eta)
+    torch.cuda.synchronize()
+    err = compare(out, fused_consensus_sgd_plain(w, g, W, eta), "float32",
+                  "fused_consensus_sgd mamba2")
+    del out
+    torch.cuda.empty_cache()
+    # kernel and the two library calls in turns (kernel, library,
+    # library, kernel), after an untimed turn of each
+    calls = {"kernel": lambda: fused_consensus_sgd(w, g, W, eta),
+             "library": lambda: torch.bmm(W, torch.add(w, g,
+                                                       alpha=-SCALE_LR))}
+    for fn in calls.values():
+        cuda_ms(fn, iters=2)
+    order = ("kernel", "library", "library", "kernel")
+    turns = [cuda_ms(calls[name], iters=5, warmup=1) for name in order]
+    ms = sum(t for t, name in zip(turns, order) if name == "kernel") / 2
+    library_ms = sum(t for t, name in zip(turns, order)
+                     if name == "library") / 2
+    plain_ms = cuda_ms(lambda: fused_consensus_sgd_plain(w, g, W, eta),
+                       iters=3)
+    n = w.numel()
+    bytes_moved = 3 * n * w.element_size()
+    b_ms, b_by = bound(bytes_moved, n * (2 + 2 * 2))
+    log(f"[kernels] fused_consensus_sgd (2, 2, {MAMBA2_P}) f32 (mamba2-370m"
+        f"): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm(W, "
+        f"torch.add(w, g, alpha=-η)) (two calls) {library_ms:.4f} ms (in "
+        f"turns: {', '.join(f'{n} {t:.4f}' for n, t in zip(order, turns))} "
+        f"ms), bound {b_ms:.4f} ms ({b_by}: {bytes_moved} B at 3.35 TB/s), "
+        f"kernel at {bytes_moved / ms / 1e6:.1f} GB/s, max_abs_err "
+        f"{err:.3e}")
+    numbers["fused_consensus_sgd"]["at_mamba2_shape"] = {
+        "shape": [2, 2, MAMBA2_P], "max_abs_err": err, "ms": ms,
+        "ms_turns": turns, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by}
+    del w, g
+    torch.cuda.empty_cache()
     return numbers
 
 
@@ -565,15 +625,13 @@ class NumpyDraws:
              for _ in range(num_clusters)]))
 
 
-def phase_slice(profile: bool = False) -> int:
-    import torch
-    from repro_torch.configs import TopologyConfig, TTHFConfig
-    from repro_torch.core import TTHFTrainer
+def sim_setup():
+    """The paper's Sec. IV setup: 125 devices in 25 geometric clusters,
+    ``fashion_synth(12_500)``, 3 labels per device; the NN at hidden
+    width 7840 and the SVM."""
+    from repro_torch.configs import TopologyConfig
     from repro_torch.data import fashion_synth, partition_noniid_labels
-    from repro_torch.kernels.consensus_mix import consensus_mix
     from repro_torch.models import make_sim_model
-
-    steps, eval_every = 40, 10
     x, y = fashion_synth(num_points=12_500, seed=0)
     data = partition_noniid_labels(x, y, num_devices=125,
                                    labels_per_device=3, seed=0)
@@ -581,10 +639,35 @@ def phase_slice(profile: bool = False) -> int:
                           graph="geometric", seed=0)
     nn = make_sim_model("nn", data.feature_dim, data.num_classes, 7840)
     svm = make_sim_model("svm", data.feature_dim, data.num_classes)
+    return data, topo, nn, svm
 
-    def algo(gamma_d2d=2):
-        return TTHFConfig(tau=20, consensus_every=5, gamma_d2d=gamma_d2d,
-                          constant_lr=2e-3)
+
+def sim_algo(gamma_d2d=2):
+    """τ 20, consensus every 5, Γ (-1: Remark-1 adaptive), lr 2e-3."""
+    from repro_torch.configs import TTHFConfig
+    return TTHFConfig(tau=20, consensus_every=5, gamma_d2d=gamma_d2d,
+                      constant_lr=2e-3)
+
+
+def sim_ledger(tr) -> tuple:
+    led = tr.ledger
+    return (led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
+
+
+def phase_slice(profile: bool = False) -> dict:
+    """The sim path at the paper's size through ``consensus_mix``, held to
+    ``masked_loop``, the SVM, adaptive Γ and the CPU. Returns the main
+    run's launches and its history and ledger."""
+    import torch
+    from repro_torch.configs import TopologyConfig
+    from repro_torch.core import TTHFTrainer
+    from repro_torch.data import fashion_synth, partition_noniid_labels
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.models import make_sim_model
+
+    steps, eval_every = 40, 10
+    data, topo, nn, svm = sim_setup()
+    algo = sim_algo
 
     def run(model, cfg, run_steps=steps, **kw):
         tr = TTHFTrainer(model, data, topo, cfg, batch_size=16, **kw)
@@ -594,9 +677,7 @@ def phase_slice(profile: bool = False) -> int:
         torch.cuda.synchronize()
         return tr, hist, time.time() - t0
 
-    def ledger(tr):
-        led = tr.ledger
-        return (led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
+    ledger = sim_ledger
 
     # warm-up (allocator, cuBLAS handles, the kernel's first load) so
     # that the timed runs below compare like with like
@@ -685,13 +766,143 @@ def phase_slice(profile: bool = False) -> int:
     if profile:
         profile_main_path(lambda: run(nn, algo(), use_kernel=True,
                                       run_steps=20)[2], "20 sim steps")
-    return launches
+    return {"launches": launches, "global_loss": hist.global_loss,
+            "global_acc": hist.global_acc, "ledger": ledger(tr),
+            "gamma_used": [g.tolist() for g in hist.gamma_used]}
+
+
+NETSIM_SCENARIOS = ("markov_links", "device_churn", "stragglers",
+                    "flash_crowd")
+
+
+def phase_slice_netsim(plain_run: dict, profile: bool = False) -> int:
+    """The sim path at the paper's size under the four dynamic netsim
+    scenarios, 60 steps each (flash_crowd's half of the fleet leaves at
+    30 and returns at 50): each consensus event through ``consensus_mix``
+    with the event's V, held to ``masked_loop`` on the card (loss rtol
+    1e-4; gamma_used, active_devices and the ledger exactly); and the
+    ``static`` scenario equal to ``phase_slice``'s run without one.
+    Returns the kernel runs' launches."""
+    import torch
+    from repro_torch.core import TTHFTrainer
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.netsim import scenarios
+
+    steps, eval_every = 60, 10
+    data, topo, nn, _ = sim_setup()
+
+    def run(name, run_steps=steps, **kw):
+        tr = TTHFTrainer(nn, data, topo, sim_algo(), batch_size=16,
+                         dynamics=scenarios.get(name, seed=0), **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, hist = tr.run(steps=run_steps, seed=0, eval_every=eval_every)
+        torch.cuda.synchronize()
+        return tr, hist, time.time() - t0
+
+    # static: the run of phase_slice, exactly (40 steps, the same eval
+    # calendar)
+    consensus_mix.launches = 0
+    tr, hist, wall = run("static", run_steps=40, use_kernel=True)
+    assert tr.tvnet is None and consensus_mix.launches == 32
+    assert hist.global_loss == plain_run["global_loss"], \
+        (hist.global_loss, plain_run["global_loss"])
+    assert hist.global_acc == plain_run["global_acc"]
+    assert sim_ledger(tr) == plain_run["ledger"]
+    log(f"[slice-netsim] static: 40 steps in {wall:.3f} s, loss "
+        f"{hist.global_loss}: equal to the [slice] run without a scenario")
+    # warm-up of the dynamic path (its masked step, the weighted
+    # aggregation) on both backends
+    for kw in (dict(use_kernel=True), dict(backend="masked_loop")):
+        _, _, wall0 = run("device_churn", run_steps=5, **kw)
+        log(f"[slice-netsim] warm-up device_churn {kw}: 5 steps in "
+            f"{wall0:.3f} s")
+
+    total = 0
+    events = steps // sim_algo().consensus_every
+    for name in NETSIM_SCENARIOS:
+        torch.cuda.reset_peak_memory_stats()
+        consensus_mix.launches = 0
+        tr, hist, wall = run(name, use_kernel=True)
+        launches = consensus_mix.launches
+        peak = torch.cuda.max_memory_allocated()
+        assert tr.backend == "pallas" and tr.tvnet is not None
+        assert np.isfinite(hist.global_loss).all(), (name, hist.global_loss)
+        # one launch per parameter leaf per consensus event, whatever V
+        assert launches == events * 4, (name, launches)
+        total += launches
+        torch.cuda.reset_peak_memory_stats()
+        tr2, hist2, wall2 = run(name, backend="masked_loop")
+        peak2 = torch.cuda.max_memory_allocated()
+        assert consensus_mix.launches == launches
+        np.testing.assert_allclose(hist2.global_loss, hist.global_loss,
+                                   rtol=1e-4)
+        assert [g.tolist() for g in hist2.gamma_used] == \
+            [g.tolist() for g in hist.gamma_used], name
+        assert hist2.active_devices == hist.active_devices, name
+        assert sim_ledger(tr2) == sim_ledger(tr), name
+        assert tr2.ledger.delay(0.1) == tr.ledger.delay(0.1), name
+        if name == "flash_crowd":
+            fleet = data.num_devices
+            assert min(hist.active_devices) < fleet, hist.active_devices
+            assert hist.active_devices[-1] == fleet, hist.active_devices
+        log(f"[slice-netsim] {name}: kernel {steps} steps in {wall:.3f} s = "
+            f"{steps / wall:.3f} steps/s, consensus_mix launches {launches},"
+            f" max_memory_allocated {peak} B; masked_loop {steps / wall2:.3f}"
+            f" steps/s, max_memory_allocated {peak2} B; loss "
+            f"{hist.global_loss} (masked_loop within rtol 1e-4), "
+            f"active_devices {hist.active_devices}, gamma_used (last) "
+            f"{hist.gamma_used[-1].tolist()}, ledger {sim_ledger(tr)}, "
+            f"delay@0.1 {tr.ledger.delay(0.1):.3f} s (the same on both)")
+        if profile and name == "device_churn":
+            profile_main_path(lambda: run(name, use_kernel=True,
+                                          run_steps=20)[2],
+                              "20 sim steps under device_churn")
+    return total
 
 
 def read_losses(path: Path) -> list:
     """The per-interval train losses a run's metric log wrote."""
     return [json.loads(line)["train_loss"]
             for line in path.read_text().splitlines()]
+
+
+def scale_cli_config():
+    """The scale CLI's defaults: 4 replicas in ring clusters of 2, τ 20,
+    consensus every 5, Γ 2, lr 2e-3."""
+    from repro_torch.core.distributed import TTHFScaleConfig
+    return TTHFScaleConfig(replicas=4, cluster_size=2, tau=20,
+                           consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
+
+
+def scale_run(c, sc, fused: bool, intervals: int, name: str, *,
+              batch=SCALE_BATCH, seq=128, device="cuda", weights=None,
+              seed=0):
+    """One ``ScaleTrainer`` run from ``weights`` with numpy draws; its
+    metric log goes to chiprun_out/scale_<name>.jsonl. Returns the
+    trainer, the per-interval losses, the wall time and the ledger."""
+    import torch
+    from repro_torch.train import ScaleTrainer, TrainerConfig
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log_path = out_dir / f"scale_{name}.jsonl"
+    log_path.unlink(missing_ok=True)
+    tr = ScaleTrainer(c, sc, TrainerConfig(
+        batch_per_replica=batch, seq_len=seq, intervals=intervals,
+        eval_every=0, seed=0, fused_interval=fused,
+        log_path=str(log_path)), device=device)
+    tr.init(w0=weights, draws=NumpyDraws(seed))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    tr.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    tr.close()
+    led = tr.ledger
+    return tr, read_losses(log_path), wall, (
+        led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
 
 
 def phase_scale(profile: bool = False) -> dict:
@@ -707,39 +918,17 @@ def phase_scale(profile: bool = False) -> dict:
     from repro_torch.kernels.fused_sgd import fused_sgd
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
-    from repro_torch.train import ScaleTrainer, TrainerConfig
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     cfg = get_arch("qwen1.5-0.5b")
-    # the scale CLI's defaults
-    scale = TTHFScaleConfig(replicas=4, cluster_size=2, tau=20,
-                            consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
+    scale = scale_cli_config()
     tokens_per_interval = scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0), "cuda")
 
     def run(fused: bool, intervals: int, name: str, c=cfg, sc=scale,
-            batch=SCALE_BATCH, seq=128, device="cuda", weights=w0,
-            seed=0):
-        log_path = out_dir / f"scale_{name}.jsonl"
-        log_path.unlink(missing_ok=True)
-        tr = ScaleTrainer(c, sc, TrainerConfig(
-            batch_per_replica=batch, seq_len=seq, intervals=intervals,
-            eval_every=0, seed=0, fused_interval=fused,
-            log_path=str(log_path)), device=device)
-        tr.init(w0=weights, draws=NumpyDraws(seed))
-        if device == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.time()
-        tr.run()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.time() - t0
-        tr.close()
-        led = tr.ledger
-        return tr, read_losses(log_path), wall, (
-            led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
+            weights=w0, **kw):
+        return scale_run(c, sc, fused, intervals, name, weights=weights,
+                         **kw)
 
     # warm-up: allocator, cuBLAS handles, the kernel's first load
     tr, losses, wall, _ = run(True, 1, "warmup")
@@ -820,6 +1009,110 @@ def phase_scale(profile: bool = False) -> dict:
     assert led_gpu == led_cpu
     log(f"[scale] reduced qwen on cuda vs cpu: loss {l_gpu} vs {l_cpu} "
         f"(rtol 1e-4), same ledger {led_gpu}")
+    return launches
+
+
+def phase_scale_ssm(profile: bool = False) -> int:
+    """ScaleTrainer on the full-size mamba2-370m (the ssm kind; the
+    training gradient runs through the plain chunked scan, ssd_scan being
+    forward only): the fused interval (through fused_consensus_sgd), the
+    per-leaf step held to it, and a reduced mamba2 on the card held to
+    the CPU. Returns the fused run's fused_consensus_sgd launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import TTHFScaleConfig
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.fused_sgd import fused_sgd
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_arch("mamba2-370m")
+    assert (cfg.kind, cfg.num_layers, cfg.d_model) == ("ssm", 48, 1024)
+    scale = scale_cli_config()
+    tokens_per_interval = scale.tau * scale.replicas * SCALE_BATCH * 128
+    w0 = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    def counters():
+        return (fused_consensus_sgd.launches, consensus_mix.launches,
+                fused_sgd.launches, ssd_scan.launches)
+
+    tr, losses, wall, _ = scale_run(cfg, scale, True, 1, "ssm_warmup",
+                                    weights=w0)
+    log(f"[scale-ssm] warm-up mamba2-370m fused interval: 1 interval in "
+        f"{wall:.3f} s, loss {losses}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # the path: the fused interval through fused_consensus_sgd
+    torch.cuda.reset_peak_memory_stats()
+    fused_consensus_sgd.launches = consensus_mix.launches = 0
+    fused_sgd.launches = ssd_scan.launches = 0
+    tr, losses, wall, ledger = scale_run(cfg, scale, True, 2, "ssm_fused",
+                                         weights=w0)
+    launches, mixes, sgds, scans = counters()
+    peak = torch.cuda.max_memory_allocated()
+    assert tr._spec.total == tr._spec.padded == MAMBA2_P, tr._spec.total
+    assert np.isfinite(losses).all() and len(losses) == 2, losses
+    # one launch per consensus block (4 a interval); the gradient goes
+    # through the plain scan, and no other kernel runs
+    assert (launches, mixes, sgds, scans) == (8, 0, 0, 0), counters()
+    g_fused = tr.params[0].clone()
+    spec = tr._spec
+    log(f"[scale-ssm] mamba2-370m fused interval: 2 intervals in "
+        f"{wall:.3f} s = {2 / wall:.4f} intervals/s, "
+        f"{2 * tokens_per_interval / wall:.1f} tokens/s, loss {losses}, "
+        f"ledger {ledger}, fused_consensus_sgd launches {launches}, "
+        f"max_memory_allocated {peak} B")
+    del tr
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: scale_run(cfg, scale, True, 1,
+                                            "ssm_profile", weights=w0)[2],
+                          "1 mamba2-370m scale interval (fused)")
+        torch.cuda.empty_cache()
+
+    # the same run through the per-leaf step (fused_power einsum)
+    fused_consensus_sgd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tr2, losses2, wall2, ledger2 = scale_run(cfg, scale, False, 2,
+                                             "ssm_perleaf", weights=w0)
+    peak2 = torch.cuda.max_memory_allocated()
+    assert fused_consensus_sgd.launches == 0
+    np.testing.assert_allclose(losses2, losses, rtol=1e-4)
+    assert ledger2 == ledger, (ledger2, ledger)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(tr2._global_params()), spec.leaf_views(g_fused)))
+    assert diff <= 1e-5, diff
+    log(f"[scale-ssm] mamba2-370m per-leaf step: 2 intervals in "
+        f"{wall2:.3f} s = {2 / wall2:.4f} intervals/s, "
+        f"{2 * tokens_per_interval / wall2:.1f} tokens/s, loss {losses2} "
+        f"(rtol 1e-4 vs the fused run), same ledger, max_memory_allocated "
+        f"{peak2} B, global model ({MAMBA2_P} parameters) max |diff| "
+        f"{diff:.3e} (atol 1e-5)")
+    del tr2, g_fused, w0
+    torch.cuda.empty_cache()
+
+    # the card against the CPU on a reduced mamba2 (chunk 32, sequences of
+    # 48 pad to 64): same weights and draws; the CPU takes the kernel's
+    # plain version
+    small = cfg.reduced()
+    ssc = TTHFScaleConfig(replicas=4, cluster_size=2, tau=4,
+                          consensus_every=2, gamma_d2d=2, lr=0.05)
+    sw0 = build_model(small).init(torch.Generator().manual_seed(1), "cpu")
+    fused_consensus_sgd.launches = 0
+    kw = dict(batch=2, seq=48, weights=sw0, seed=1)
+    _, l_gpu, _, led_gpu = scale_run(small, ssc, True, 2, "ssm_small_cuda",
+                                     device="cuda", **kw)
+    assert fused_consensus_sgd.launches == 4, fused_consensus_sgd.launches
+    _, l_cpu, _, led_cpu = scale_run(small, ssc, True, 2, "ssm_small_cpu",
+                                     device="cpu", **kw)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    assert led_gpu == led_cpu
+    log(f"[scale-ssm] reduced mamba2 on cuda vs cpu: loss {l_gpu} vs "
+        f"{l_cpu} (rtol 1e-4), same ledger {led_gpu}")
     return launches
 
 
@@ -1672,13 +1965,21 @@ def main() -> int:
                **timed("fused kernels", phase_fused_kernels)}
     numbers["paged_decode"] = timed("paged kernel", phase_paged_kernel)
     numbers["ssd_scan"] = timed("ssd kernel", phase_ssd_kernel)
-    launches = {"consensus_mix": timed("slice", phase_slice,
-                                       profile=profile),
-                **timed("scale", phase_scale, profile=profile),
-                "paged_decode": timed("serve", phase_serve,
-                                      profile=profile),
-                "ssd_scan": timed("serve-ssm", phase_serve_ssm,
-                                  profile=profile)}
+    # each path's launches, its counters reset just before it
+    slice_run = timed("slice", phase_slice, profile=profile)
+    by_path = {"consensus_mix": {
+        "slice": slice_run["launches"],
+        "slice-netsim": timed("slice-netsim", phase_slice_netsim, slice_run,
+                              profile=profile)}}
+    scale_launches = timed("scale", phase_scale, profile=profile)
+    by_path["fused_sgd"] = {"scale": scale_launches["fused_sgd"]}
+    by_path["fused_consensus_sgd"] = {
+        "scale": scale_launches["fused_consensus_sgd"],
+        "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile)}
+    by_path["paged_decode"] = {"serve": timed("serve", phase_serve,
+                                              profile=profile)}
+    by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
+                                              profile=profile)}
     timed("forward-ssm", phase_forward_ssm)
     replaces = {"consensus_mix": "src/repro/kernels/consensus_mix.py:44",
                 "fused_consensus_sgd":
@@ -1698,7 +1999,9 @@ def main() -> int:
     for name, nums in numbers.items():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "on_main_path": name != "fused_sgd",
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],

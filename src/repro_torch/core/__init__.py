@@ -1,8 +1,6 @@
 """TT-HF core of the port — topology, mixing, sampling, schedules, the
-ledger and the Algorithm-1 trainer, each mirroring ``repro/core/``.
-
-``core/theory.py`` is not copied yet: it comes with the obs port (its
-gauges) and scale mode.
+ledger, the convergence theory and the Algorithm-1 trainer, each
+mirroring ``repro/core/``.
 """
 from repro_torch.core.topology import (
     Network, build_network, metropolis_weights, laplacian_weights,
@@ -24,6 +22,10 @@ from repro_torch.core.sampling import (
     sampled_global_model_multi, sampled_global_pytree,
     full_global_pytree, broadcast_pytree,
 )
+from repro_torch.core.theory import (
+    ProblemConstants, check_theorem2_conditions, theorem2_Z, theorem2_nu,
+    bound_curve, lemma1_bound, dispersion_bound,
+)
 from repro_torch.core.energy import CommLedger, E_GLOB_J, DELTA_GLOB_S
 from repro_torch.core.tthf import TTHFTrainer, TTHFState, History, \
     make_baseline_config
@@ -41,6 +43,8 @@ __all__ = [
     "TorchDraws", "sample_devices", "sample_devices_multi",
     "sampled_global_model", "sampled_global_model_multi",
     "sampled_global_pytree", "full_global_pytree", "broadcast_pytree",
+    "ProblemConstants", "check_theorem2_conditions", "theorem2_Z",
+    "theorem2_nu", "bound_curve", "lemma1_bound", "dispersion_bound",
     "CommLedger", "E_GLOB_J", "DELTA_GLOB_S",
     "TTHFTrainer", "TTHFState", "History", "make_baseline_config",
 ]

@@ -8,12 +8,15 @@ the cluster.
 
 Draws cross a seam: torch cannot reproduce JAX's threefry streams, so
 the trainer takes its minibatch indices and per-cluster picks from a
-*draw source* with two methods, ``minibatch(I, B, D) -> (I, B)`` (one
-call per local-SGD iteration) and ``picks(N, s, k) -> (N,) | (N, k)``
-(one call per sampled aggregation, after the iterations that precede
-it). :class:`TorchDraws` is the default source; a test can hand the
-trainer any other object with those methods, such as one that replays
-the reference's key schedule.
+*draw source* with three methods, ``minibatch(I, B, D) -> (I, B)`` (one
+call per local-SGD iteration), ``picks(N, s, k) -> (N,) | (N, k)`` (one
+call per sampled aggregation on the static topology, after the
+iterations that precede it) and ``host_seed() -> int`` (one call per
+sampled aggregation under netsim dynamics, in place of the picks: it
+seeds the host generator that samples among the available devices).
+:class:`TorchDraws` is the default source; a test can hand the trainer
+any other object with those methods, such as one that replays the
+reference's key schedule.
 """
 from __future__ import annotations
 
@@ -61,6 +64,10 @@ class TorchDraws:
             return sample_devices(self.generator, num_clusters, cluster_size)
         return sample_devices_multi(self.generator, num_clusters,
                                     cluster_size, k)
+
+    def host_seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.generator,
+                                 device=self.generator.device))
 
 
 def _take(z: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:

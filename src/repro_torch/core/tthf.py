@@ -1,5 +1,5 @@
 """Algorithm 1 — the TT-HF simulation engine; the port of ``repro/core/
-tthf.py`` for the static topology.
+tthf.py`` for the static topology and under netsim dynamics.
 
 The device fleet is stacked: every parameter leaf carries a leading
 device axis ``I = N * s``. Local SGD runs all devices at once (batched
@@ -16,6 +16,13 @@ are 3.1 GB at the paper's NN width, so the port does not copy them each
 step). Random draws come from a draw source (:mod:`repro_torch.core.
 sampling`) instead of a JAX key.
 
+Under netsim dynamics (``dynamics=``, :mod:`repro_torch.netsim`) a dark
+device takes no step and holds its parameters, each consensus event
+mixes with the event's V on the active subgraph, and an aggregation
+weighs the available devices and broadcasts only to them. Fog
+hierarchies and the control plane are not ported yet (ROADMAP.md Queue
+1 item 4).
+
 Baselines (Sec. IV-B) are the same engine with ``mode``:
   * ``tthf``        — Algorithm 1 (sampled aggregation + D2D consensus)
   * ``fedavg``      — star FL, full participation, no D2D (tau as given)
@@ -30,7 +37,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import TTHFConfig, TopologyConfig
+from repro_torch.configs.base import (
+    DynamicsConfig, HierarchyConfig, TTHFConfig, TopologyConfig)
 from repro_torch.core import consensus as cns
 from repro_torch.core import mixing
 from repro_torch.core import sampling as smp
@@ -41,6 +49,7 @@ from repro_torch.core.topology import Network, build_network
 from repro_torch.data.synth import FederatedDataset
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.simple import SimModel
+from repro_torch.netsim.faults import weighted_global_pytree
 from repro_torch.obs.sink import NULL_OBS
 from repro_torch.rounds import RoundProgram, RoundResolver
 
@@ -82,6 +91,8 @@ class TTHFTrainer:
                  batch_size: int = 16, eval_x: np.ndarray | None = None,
                  eval_y: np.ndarray | None = None,
                  use_kernel: bool = False, backend: str | None = None,
+                 dynamics: Optional[DynamicsConfig] = None,
+                 hierarchy: Optional[HierarchyConfig] = None,
                  program: Optional[RoundProgram] = None,
                  device: DeviceLike = None):
         assert data.num_devices == topo_cfg.num_devices
@@ -94,8 +105,17 @@ class TTHFTrainer:
         self.net: Network = build_network(topo_cfg)
         self.batch_size = batch_size
         self.use_kernel = use_kernel
-        self.program = program if program is not None else RoundProgram()
-        self._resolver = RoundResolver.for_sim(self.net, algo, self.program)
+        # ``dynamics``/``hierarchy`` are sugar for a round program; a
+        # static (or absent) dynamics config resolves to the static path
+        if program is None:
+            program = RoundProgram(dynamics=dynamics, hierarchy=hierarchy)
+        elif dynamics is not None or hierarchy is not None:
+            raise ValueError("pass either program= or the dynamics=/"
+                             "hierarchy= kwargs, not both")
+        self.program = program
+        self._resolver = RoundResolver.for_sim(
+            self.net, algo, program, topo_weights=topo_cfg.weights)
+        self.tvnet = self._resolver.tvnet
         # consensus backend (core/mixing.py): the masked bounded loop by
         # default; use_kernel routes through the consensus_mix kernel
         if backend is None:
@@ -142,20 +162,24 @@ class TTHFTrainer:
     # ------------------------------------------------------------------
     # the pieces the reference jits
     # ------------------------------------------------------------------
-    def _local_step(self, params: dict, idx: torch.Tensor,
-                    eta_t: float) -> None:
+    def _local_step(self, params: dict, idx: torch.Tensor, eta_t: float,
+                    dark: Optional[torch.Tensor] = None) -> None:
         """One SGD iteration (eqs. 8-9) for every device, in place.
-        idx: (I, B) minibatch indices into each device's points."""
+        idx: (I, B) minibatch indices into each device's points; dark:
+        (I,) bool, the devices that are offline (netsim churn). A dark
+        device takes no step: its rows of the update are zeroed (a fill,
+        so a non-finite gradient there cannot leak), leaving its
+        parameters bitwise as they were, without a second copy of the
+        fleet."""
         rows = torch.arange(idx.shape[0], device=self.device)[:, None]
         grads = self.model.grads(params, self.x[rows, idx],
                                  self.y[rows, idx])
         with torch.no_grad():
             for k, g in grads.items():
-                params[k].sub_(g.mul_(eta_t))
-
-    def _consensus(self, params: dict, gamma: torch.Tensor) -> dict:
-        return mixing.mix_pytree(params, self.V, gamma,
-                                 self.net.num_clusters, backend=self.backend)
+                g.mul_(eta_t)
+                if dark is not None:
+                    g.masked_fill_(dark.view((-1,) + (1,) * (g.ndim - 1)), 0)
+                params[k].sub_(g)
 
     def _aggregate(self, params: dict, draws, full: bool):
         if full:
@@ -202,6 +226,14 @@ class TTHFTrainer:
         return torch.stack(ups).amax(dim=0)
 
     @torch.no_grad()
+    def _upsilon_dyn(self, params: dict,
+                     device_up: torch.Tensor) -> torch.Tensor:
+        """Definition-2 divergence over ACTIVE devices, max over leaves."""
+        ups = [cns.masked_divergence_upsilon(z, device_up)
+               for z in self._leaves_by_cluster(params)]
+        return torch.stack(ups).amax(dim=0)
+
+    @torch.no_grad()
     def _dispersion(self, params: dict) -> float:
         """A^(t) sample: sum_c varrho_c ||wbar_c - wbar||^2."""
         total = 0.0
@@ -223,37 +255,81 @@ class TTHFTrainer:
     # round-program events
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _consensus_event(self, st: TTHFState,
+    def _consensus_event(self, st: TTHFState, spec,
                          eta_t: torch.Tensor) -> tuple[np.ndarray, int]:
-        """One consensus event on the base topology; replaces st.params
-        and returns ``(per-cluster rounds used, clamp events)``."""
+        """One consensus event from a resolved :class:`~repro_torch.
+        rounds.program.ConsensusSpec`; replaces st.params and returns
+        ``(per-cluster rounds used, clamp events)``. A static spec mixes
+        on the base topology; a dynamic one mixes with the event's V on
+        the active subgraph, and a cluster with no live edge neither
+        runs nor bills rounds."""
         algo = self.algo
         N = self.net.num_clusters
+        dev = self.device
         sat = 0
         if algo.gamma_d2d >= 0:
-            gamma = fixed_gamma(N, algo.gamma_d2d, self.device)
+            gamma = fixed_gamma(N, algo.gamma_d2d, dev)
         else:
+            if spec.dynamic:
+                ups = self._upsilon_dyn(
+                    st.params, torch.as_tensor(spec.device_up, device=dev))
+                lambdas = torch.as_tensor(spec.lambdas, dtype=torch.float32,
+                                          device=dev)
+                sizes = torch.as_tensor(spec.active_sizes, dtype=torch.int32,
+                                        device=dev)
+            else:
+                ups = self._upsilon(st.params)
+                lambdas, sizes = self.lambdas, self.net.cluster_size
             gamma, sat_mask = adaptive_gamma_info(
-                eta_t, algo.phi, self._upsilon(st.params), self.lambdas,
-                self.net.cluster_size, self.model_dim)
+                eta_t, algo.phi, ups, lambdas, sizes, self.model_dim)
             sat = int(sat_mask.sum())
-        st.params = self._consensus(st.params, gamma)
+        V = self.V
+        if spec.dynamic:
+            edges = torch.as_tensor(spec.edges, device=dev)
+            gamma = torch.where(edges == 0, 0, gamma)
+            V = torch.as_tensor(spec.V, dtype=torch.float32, device=dev)
+        st.params = mixing.mix_pytree(st.params, V, gamma, N,
+                                      backend=self.backend)
         return gamma.cpu().numpy(), sat
 
     @torch.no_grad()
     def _apply_aggregation(self, st: TTHFState, spec) -> None:
-        g, st.params = self._aggregate(st.params, st.draws, full=spec.full)
+        """Apply a resolved aggregation: the sampled (or full) eq. (7)
+        on the static topology, or the availability-aware weights under
+        dynamics, broadcast only to the devices that are up (offline
+        devices cannot hear the server)."""
+        if spec.kind == "static":
+            g, st.params = self._aggregate(st.params, st.draws,
+                                           full=spec.full)
+        else:
+            w = torch.as_tensor(spec.weights, dtype=torch.float32,
+                                device=self.device)
+            g = weighted_global_pytree(st.params, w, self.net.num_clusters)
+            up = torch.as_tensor(spec.device_up.reshape(-1),
+                                 device=self.device)
+            for k, leaf in st.params.items():
+                leaf[up] = g[k]
         st.global_params = g
 
     def _local_span(self, st: TTHFState, t_from: int, t_to: int) -> int:
         """Run the pure local-SGD iterations t_from..t_to (inclusive);
-        updates st.params in place and returns the device-steps taken."""
+        updates st.params in place and returns the device-steps taken.
+        Under dynamics each iteration's snapshot says who is up."""
         I, D = self.y.shape
+        live = 0
         for u in range(t_from, t_to + 1):
             idx = st.draws.minibatch(I, self.batch_size, D)
+            dark = None
+            if self.tvnet is None:
+                live += I
+            else:
+                up = self.tvnet.snapshot(u).device_up.reshape(-1)
+                live += int(up.sum())
+                if not up.all():
+                    dark = torch.as_tensor(~up, device=self.device)
             self._local_step(st.params, idx.to(self.device),
-                             float(self.eta(u - 1)))
-        return I * (t_to - t_from + 1)
+                             float(self.eta(u - 1)), dark)
+        return live
 
     # ------------------------------------------------------------------
     def run(self, steps: int, seed: int = 0, eval_every: int = 5,
@@ -280,12 +356,12 @@ class TTHFTrainer:
                     self.ledger.record_local_step(live)
 
                     eta_b = self.eta(b - 1)
-                    ev = res.resolve(b)
+                    ev = res.resolve(b, st.draws)
                     gamma_used = np.zeros((N,), np.int32)
                     if ev.consensus is not None:
                         with obs.span("consensus_event", t=b):
                             gamma_used, gamma_sat = self._consensus_event(
-                                st, eta_b)
+                                st, ev.consensus, eta_b)
                         self._gamma_saturated_total += gamma_sat
                     if ev.aggregation is not None:
                         with obs.span("aggregation", t=b,

@@ -28,7 +28,7 @@ Examples:
   python -m repro_torch.launch.serve --arch mamba2-370m --reduced \
       --batch 4 --prompt-len 64 --gen 16 --device cpu
 
-Other ``--arch`` kinds raise (ROADMAP.md Queue 1 item 6). Not ported
+Other ``--arch`` kinds raise (ROADMAP.md Queue 1 item 6b). Not ported
 yet, and refused with the ROADMAP.md item that brings them: ``--mesh``
 and ``--host-devices`` (Queue 1 item 8); ``--trace-dir`` and
 ``--profile`` (item 5).

@@ -1,26 +1,34 @@
 """Training entry point of the port, with the flags of
 ``repro/launch/train.py`` plus ``--device``. Two modes:
 
-* ``--mode sim``   — the paper's Algorithm 1 on the federated image task.
-                     D2D mixing always goes through the ``consensus_mix``
-                     wrapper: on the CUDA device it launches the kernel,
-                     and on the CPU it runs the kernel's plain version.
-* ``--mode scale`` — TT-HF as the sync strategy for a dense model-zoo
-                     arch (``--arch``) through ``ScaleTrainer``, on one
-                     device, with the reference's per-leaf interval step.
+* ``--mode sim``   — the paper's Algorithm 1 on the federated image task,
+                     on the static topology or under a netsim scenario
+                     (``--scenario``). D2D mixing always goes through the
+                     ``consensus_mix`` wrapper: on the CUDA device it
+                     launches the kernel, and on the CPU it runs the
+                     kernel's plain version.
+* ``--mode scale`` — TT-HF as the sync strategy for a dense or ssm
+                     model-zoo arch (``--arch``) through ``ScaleTrainer``,
+                     on one device, with the reference's per-leaf
+                     interval step.
 
 Examples:
   python -m repro_torch.launch.train --mode sim --model nn --hidden 7840 \
       --steps 40                                  # on the CUDA device
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 25 --clusters 5 --points 2500 --steps 20 --device cpu
+  python -m repro_torch.launch.train --mode sim --model svm \
+      --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
+      --scenario stragglers --device cpu
   python -m repro_torch.launch.train --mode scale --arch qwen1.5-0.5b \
       --steps 2                                   # full size, on the card
+  python -m repro_torch.launch.train --mode scale --arch mamba2-370m \
+      --steps 2
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--arch`` of a kind other than dense (Queue 1 item 6); ``--scenario``,
-``--hierarchy`` and ``--control`` other than static (item 4);
-``--trace-dir`` and ``--profile`` (item 5).
+``--arch`` of a kind other than dense or ssm (Queue 1 item 6b);
+``--scenario`` in scale mode, ``--hierarchy`` and ``--control`` other
+than static (item 4); ``--trace-dir`` and ``--profile`` (item 5).
 """
 from __future__ import annotations
 
@@ -33,9 +41,17 @@ import numpy as np
 
 
 def _refuse_unported(args) -> None:
-    if args.scenario or args.hierarchy or args.control != "static":
+    if args.scenario and args.mode == "scale":
         raise NotImplementedError(
-            "--scenario/--hierarchy/--control are not ported yet "
+            "--scenario runs in --mode sim; netsim dynamics in scale mode "
+            "are not ported yet (ROADMAP.md Queue 1 item 4)")
+    if args.hierarchy:
+        raise NotImplementedError(
+            "--hierarchy (the fog hierarchy) is not ported yet "
+            "(ROADMAP.md Queue 1 item 4)")
+    if args.control != "static":
+        raise NotImplementedError(
+            "--control (the control plane) is not ported yet "
             "(ROADMAP.md Queue 1 item 4)")
     if args.trace_dir or args.profile:
         raise NotImplementedError(
@@ -48,6 +64,7 @@ def run_sim(args):
     from repro_torch.core import TTHFTrainer, make_baseline_config
     from repro_torch.data import fashion_synth, partition_noniid_labels
     from repro_torch.models import make_sim_model
+    from repro_torch.netsim import scenarios
 
     _refuse_unported(args)
     x, y = fashion_synth(num_points=args.points, seed=args.seed)
@@ -65,8 +82,10 @@ def run_sim(args):
         algo = TTHFConfig(tau=args.tau, consensus_every=args.consensus_every,
                           gamma_d2d=args.gamma, constant_lr=args.lr,
                           phi=args.phi)
+    dynamics = (scenarios.get(args.scenario, seed=args.seed)
+                if args.scenario else None)
     tr = TTHFTrainer(model, data, topo, algo, batch_size=args.batch,
-                     use_kernel=True, device=args.device)
+                     use_kernel=True, dynamics=dynamics, device=args.device)
     t0 = time.time()
     st, hist = tr.run(steps=args.steps, seed=args.seed,
                       eval_every=args.eval_every)

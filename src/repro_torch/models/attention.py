@@ -10,7 +10,7 @@ in float32 (the reference's ``preferred_element_type``).
 Only the materialized path is ported: ``attention_block`` handles
 ``max(T, Tk) <= flash_threshold`` (2048). Longer sequences need the
 chunked online-softmax ``flash_attention``, which comes with the other
-families (ROADMAP.md, Queue 1 item 6).
+families (ROADMAP.md, Queue 1 item 6b).
 
 The decode paths of serving are here too: the ring cache
 (:func:`init_cache`, :func:`decode_attention`) and the paged cache
@@ -141,7 +141,7 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
         raise NotImplementedError(
             f"sequence length {T} > {flash_threshold} needs the chunked "
             "flash_attention, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
+            "item 6b)")
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if cfg.rope:

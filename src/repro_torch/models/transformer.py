@@ -6,13 +6,13 @@ the reference, so the leaves, their order and a flat buffer's offsets
 match the reference column for column; the layer loop is a Python loop
 over that axis (the reference's ``lax.scan``). The reference's
 activation rematerialization (``remat``) changes no number; the port
-leaves it out and takes no ``remat`` option (ROADMAP.md Queue 1 item 6).
+leaves it out and takes no ``remat`` option (ROADMAP.md Queue 1 item 6b).
 
 The ssm kind (Mamba-2, :mod:`repro_torch.models.ssm`) takes
 ``use_kernel``, the reference's ``use_pallas``: its scans through the
 forward-only ``ssd_scan`` kernel. The other kinds (moe, hybrid, vlm,
 encdec, audio) raise ``NotImplementedError``: they come with ROADMAP.md
-Queue 1 item 6.
+Queue 1 item 6b.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def require_ported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {' and '.join(PORTED_KINDS)} "
             f"kinds; the {cfg.kind!r} kind is not ported yet (ROADMAP.md "
-            "Queue 1 item 6)")
+            "Queue 1 item 6b)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""repro_torch.rounds — the round-program engine (static sim programs).
+"""repro_torch.rounds — the round-program engine (static programs, and
+netsim dynamics in simulation mode).
 
 A frozen :class:`RoundProgram` declares the scenario and a
 :class:`RoundResolver` compiles it against a network into per-round

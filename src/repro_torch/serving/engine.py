@@ -24,9 +24,9 @@ Python ints (the reference traced them for one jit signature; eager
 torch needs none, and a host int costs no device sync).
 
 The dense and ssm kinds are ported; the other kinds raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 6. A dense
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b. A dense
 prefill takes up to 2048 tokens (the materialized attention; the chunked
-flash path comes with item 6); an ssm prefill has no such limit.
+flash path comes with item 6b); an ssm prefill has no such limit.
 ``use_kernel`` on :func:`prefill` and :func:`prefill_chunk` sends every
 SSD scan that starts from a zero state (a one-shot prefill, a prompt's
 first chunk) through the ``ssd_scan`` kernel; a later chunk carries its
@@ -246,7 +246,7 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
     if cfg.kind != "ssm" and T > _MAX_PREFILL:
         raise NotImplementedError(
             f"a {T}-token prefill needs the chunked flash_attention, which "
-            "is not ported yet (ROADMAP.md Queue 1 item 6)")
+            "is not ported yet (ROADMAP.md Queue 1 item 6b)")
     device = tokens.device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,

@@ -21,7 +21,8 @@ from repro.rounds import RoundProgram as JRoundProgram
 from repro.rounds import RoundResolver as JRoundResolver
 from repro.rounds import program as j_program
 
-from repro_torch.configs.base import DynamicsConfig, HierarchyConfig
+from repro_torch.configs.base import (
+    ControlConfig, DynamicsConfig, HierarchyConfig)
 from repro_torch.configs.base import TopologyConfig, TTHFConfig
 from repro_torch.core import energy, schedule, topology
 from repro_torch.data import partition, synth
@@ -170,15 +171,19 @@ def test_static_resolver_calendar_exact(algo_kw, eval_every):
 
 
 @pytest.mark.parametrize("prog", [
-    RoundProgram(dynamics=DynamicsConfig(name="churn", p_device_drop=0.1)),
+    RoundProgram(control=ControlConfig(policy="remark1")),
     RoundProgram(hierarchy=HierarchyConfig(levels=3, taus=(5, 10),
                                            sample=(1, 0))),
 ])
 def test_resolver_refuses_unported_programs(prog):
+    # netsim dynamics resolve in simulation mode now; the control plane
+    # and the fog hierarchy are still to port
     net = topology.build_network(TopologyConfig(num_devices=12,
                                                 num_clusters=3))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         RoundResolver.for_sim(net, TTHFConfig(tau=5), prog)
     # the static declarations of the same knobs resolve as the paper's
-    RoundResolver.for_sim(net, TTHFConfig(tau=5), RoundProgram(
-        dynamics=DynamicsConfig(), hierarchy=HierarchyConfig()))
+    res = RoundResolver.for_sim(net, TTHFConfig(tau=5), RoundProgram(
+        dynamics=DynamicsConfig(), hierarchy=HierarchyConfig(),
+        control=ControlConfig()))
+    assert res.tvnet is None

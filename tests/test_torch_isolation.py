@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports ``jax`` or the reference package ``repro``,
-every module imports with both blocked, and the entry points refuse to
+``chip_smoke.py``, nor the ``examples/torch_*.py`` twins) imports ``jax``
+or the reference package ``repro``, every module imports and the twins
+run with both blocked, and the entry points refuse to
 run quietly on the CPU (no GPU and no explicit ``device="cpu"`` raises;
 ``chip_smoke.py`` exits non-zero without a card or without the repo)."""
 import ast
@@ -29,7 +30,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_no_port_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 3
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + twins
     assert len(files) > 20
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -65,8 +68,30 @@ for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
             "repro_torch.serving", "repro_torch.serving.engine",
             "repro_torch.serving.scheduler", "repro_torch.serving.pages",
-            "repro_torch.launch.serve"):
+            "repro_torch.launch.serve", "repro_torch.core.theory",
+            "repro_torch.netsim", "repro_torch.netsim.dynamics",
+            "repro_torch.netsim.events", "repro_torch.netsim.faults",
+            "repro_torch.netsim.scenarios"):
     assert new in names, new
+from repro_torch.netsim import scenarios
+tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
+                 TopologyConfig(num_devices=4, num_clusters=2, graph="ring"),
+                 TTHFConfig(tau=2, consensus_every=1), batch_size=4,
+                 use_kernel=True, dynamics=scenarios.get("device_churn"),
+                 device="cpu")
+_, hist = tr.run(steps=4, eval_every=2)
+assert len(hist.active_devices) == 2
+import runpy
+for twin, argv in (
+        ("torch_quickstart", ["--steps", "2", "--devices", "10",
+                              "--clusters", "2", "--points", "400"]),
+        ("torch_federated_image_classification", ["--fast", "--steps", "2"]),
+        ("torch_tthf_lm_pretrain", ["--dim", "64", "--layers", "1",
+                                    "--d-ff", "64", "--vocab", "64",
+                                    "--seq", "8", "--batch", "1",
+                                    "--tau", "2", "--intervals", "1"])):
+    sys.argv = [twin] + argv + ["--device", "cpu"]
+    runpy.run_path(f"{EXAMPLES}/{twin}.py", run_name="__main__")
 from repro_torch.configs import get_arch
 from repro_torch.core.distributed import TTHFScaleConfig
 from repro_torch.train import ScaleTrainer, TrainerConfig
@@ -104,7 +129,8 @@ print(len(names))
 
 def test_port_imports_and_runs_with_jax_and_repro_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
+    code = f"EXAMPLES = {str(ROOT / 'examples')!r}\n" + _BLOCKED_IMPORT
+    out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 20

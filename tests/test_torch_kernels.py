@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.topology import geometric_adjacency, metropolis_weights
 from repro_torch.kernels import build
-from repro_torch.core.mixing import matrix_powers
+from repro_torch.core.mixing import masked_consensus_matrix, matrix_powers
 from repro_torch.kernels.consensus_mix import (
     MAX_CLUSTER_SIZE, consensus_mix, consensus_mix_plain)
 from repro_torch.kernels.fused_consensus_sgd import (
@@ -483,6 +483,31 @@ def test_consensus_mix_kernel_on_card(cuda_device, dtype):
             consensus_mix_plain(z, V, gamma).float().cpu().numpy(),
             atol=TOL[dtype])
         assert torch.equal(consensus_mix(z, V, 0), z)
+
+
+@pytest.mark.cuda
+def test_consensus_mix_kernel_with_a_masked_V_on_card(cuda_device):
+    """The netsim path's V: ``masked_consensus_matrix`` gives a dark
+    device an identity row and leaves a cluster with no device up the
+    identity; the kernel holds both (the dark rows bitwise) and matches
+    its plain version within 1e-5 in f32."""
+    N, s, M = 6, 5, 1000
+    z, V, gamma = _inputs(N, s, M, torch.float32, cuda_device, seed=11)
+    up = torch.from_numpy(np.random.default_rng(11).random((N, s)) < 0.7)
+    up[0, 1] = False                # at least one dark device
+    up[2] = False                   # a cluster with none up
+    up[3] = True
+    Vm = masked_consensus_matrix(V, up.to(cuda_device)).contiguous()
+    gamma = torch.tensor([3, 2, 4, 64, 0, 1], dtype=torch.int32,
+                         device=cuda_device)
+    out = consensus_mix(z, Vm, gamma)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        out.cpu().numpy(), consensus_mix_plain(z, Vm, gamma).cpu().numpy(),
+        atol=TOL[torch.float32])
+    dark = ~up.to(cuda_device)
+    assert torch.equal(out[dark], z[dark])
+    assert torch.equal(out[2], z[2])
 
 
 @pytest.mark.cuda

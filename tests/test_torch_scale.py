@@ -5,7 +5,9 @@ per-interval picks replayed through the port's draw source.
 
 The step configuration is ``tests/test_fused_interval.py``'s: a 2-layer
 qwen cut to d 64 (its leaves are not lane-aligned), R 4 in clusters of
-2, tau 4, consensus every 2, Γ 2, lr 0.05.
+2, tau 4, consensus every 2, Γ 2, lr 0.05. The helpers take ``arch``:
+``tests/test_torch_scale_ssm.py`` runs the same steps on a reduced
+mamba2.
 
 Tolerances, and why:
 - token streams, flat-buffer offsets and padding, round-trips and the
@@ -54,6 +56,9 @@ from repro_torch.train import PrefetchLoader, ScaleTrainer, TrainerConfig
 _KW = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128)
 _JCFG = j_get_arch("qwen1.5-0.5b").reduced(**_KW)
 _CFG = get_arch("qwen1.5-0.5b").reduced(**_KW)
+_ARCHS = {"qwen": (_JCFG, _CFG),
+          "mamba2": (j_get_arch("mamba2-370m").reduced(**_KW),
+                     get_arch("mamba2-370m").reduced(**_KW))}
 _R, _TAU = 4, 4
 
 
@@ -73,8 +78,8 @@ def _batches(seed=1, T=16):
              "labels": torch.from_numpy(toks.copy())})
 
 
-def _w0(seed=0):
-    return j_build_model(_JCFG).init(jax.random.PRNGKey(seed))
+def _w0(seed=0, arch="qwen"):
+    return j_build_model(_ARCHS[arch][0]).init(jax.random.PRNGKey(seed))
 
 
 def _carried(w0):
@@ -207,16 +212,16 @@ _REF_RUNS = {}
 
 
 def _reference_run(sync, mode, fused_interval=False, fused_kernel=None,
-                   intervals=2):
+                   intervals=2, arch="qwen"):
     """The reference step over ``intervals`` intervals, cached."""
-    key = (sync, mode, fused_interval, fused_kernel, intervals)
+    key = (sync, mode, fused_interval, fused_kernel, intervals, arch)
     if key not in _REF_RUNS:
-        jm = j_build_model(_JCFG)
+        jm = j_build_model(_ARCHS[arch][0])
         step, _ = j_dist.make_tthf_train_step(
             jm, _scale(j_dist.TTHFScaleConfig, consensus_mode=mode),
             dtype=jnp.float32, sync=sync, fused_interval=fused_interval,
             fused_kernel=fused_kernel)
-        params = j_dist.stack_replicas(_w0(), _R)
+        params = j_dist.stack_replicas(_w0(arch=arch), _R)
         if fused_interval:
             params = step.spec.flatten(params)
         jbatch, _ = _batches()
@@ -234,12 +239,13 @@ def _reference_run(sync, mode, fused_interval=False, fused_kernel=None,
 
 
 def _port_run(sync, mode, fused_interval=False, fused_kernel=None,
-              intervals=2):
+              intervals=2, arch="qwen"):
     step, _ = dist.make_tthf_train_step(
-        build_model(_CFG), _scale(dist.TTHFScaleConfig, consensus_mode=mode),
+        build_model(_ARCHS[arch][1]),
+        _scale(dist.TTHFScaleConfig, consensus_mode=mode),
         dtype=torch.float32, sync=sync, fused_interval=fused_interval,
         fused_kernel=fused_kernel, device="cpu")
-    params = dist.stack_replicas(_carried(_w0()), _R)
+    params = dist.stack_replicas(_carried(_w0(arch=arch)), _R)
     if fused_interval:
         params = step.spec.flatten(params)
     _, tbatch = _batches()
@@ -386,12 +392,13 @@ def test_resolver_bills_the_static_interval():
             RoundProgram())
 
 
-def _trainers(fused_interval, **kw):
+def _trainers(fused_interval, arch="qwen", **kw):
     tk = dict(batch_per_replica=2, seq_len=16, intervals=3, eval_every=3,
               eval_batches=1, **kw)
-    jt = JScaleTrainer(_JCFG, _scale(j_dist.TTHFScaleConfig),
+    jcfg, cfg = _ARCHS[arch]
+    jt = JScaleTrainer(jcfg, _scale(j_dist.TTHFScaleConfig),
                        JTrainerConfig(fused_interval=fused_interval, **tk))
-    pt = ScaleTrainer(_CFG, _scale(dist.TTHFScaleConfig),
+    pt = ScaleTrainer(cfg, _scale(dist.TTHFScaleConfig),
                       TrainerConfig(fused_interval=fused_interval, **tk),
                       device="cpu")
     return jt, pt
@@ -410,7 +417,11 @@ def _losses(capsys):
 
 @pytest.mark.parametrize("fused_interval", [False, True])
 def test_scale_trainer_matches_reference(fused_interval, capsys):
-    jt, pt = _trainers(fused_interval)
+    _check_scale_trainer(fused_interval, capsys, "qwen")
+
+
+def _check_scale_trainer(fused_interval, capsys, arch):
+    jt, pt = _trainers(fused_interval, arch=arch)
     jt.init().run()
     ref_losses = _losses(capsys)
     pt.init(w0=_carried(jt.model.init(jax.random.PRNGKey(0))),

@@ -14,16 +14,16 @@ two backends to each other).
 import dataclasses
 import re
 
-import jax
 import numpy as np
 import pytest
 import torch
+
+from _jax_draws import JaxReplayDraws
 
 from repro.configs import TopologyConfig as JTopologyConfig
 from repro.configs import TTHFConfig as JTTHFConfig
 from repro.core import TTHFTrainer as JTTHFTrainer
 from repro.core import make_baseline_config as j_baseline
-from repro.core import sampling as j_smp
 from repro.data import fashion_synth, partition_noniid_labels
 from repro.models import make_sim_model as j_make_sim_model
 
@@ -33,34 +33,7 @@ from repro_torch.core.topology import build_network
 from repro_torch.launch import train as train_cli
 from repro_torch.models import make_sim_model, params_from_jax
 from repro_torch.rounds import RoundProgram
-from repro_torch.configs.base import DynamicsConfig
-
-
-class JaxReplayDraws:
-    """Draw source replaying the reference trainer's key schedule:
-    ``init`` splits the seed key once; every iteration splits the key
-    into (key, k_step, k_agg), each device's minibatch is
-    ``randint(split(k_step, I)[i], (B,), 0, D)``, and an aggregation's
-    picks come from the last iteration's k_agg."""
-
-    def __init__(self, seed):
-        _, self.key = jax.random.split(jax.random.PRNGKey(seed))
-        self.k_agg = None
-
-    def minibatch(self, num_devices, batch, points):
-        self.key, k_step, self.k_agg = jax.random.split(self.key, 3)
-        keys = jax.random.split(k_step, num_devices)
-        idx = jax.vmap(lambda k: jax.random.randint(k, (batch,), 0,
-                                                    points))(keys)
-        return torch.from_numpy(np.array(idx)).long()
-
-    def picks(self, num_clusters, cluster_size, k):
-        if k == 1:
-            p = j_smp.sample_devices(self.k_agg, num_clusters, cluster_size)
-        else:
-            p = j_smp.sample_devices_multi(self.k_agg, num_clusters,
-                                           cluster_size, k)
-        return torch.from_numpy(np.array(p)).long()
+from repro_torch.configs.base import HierarchyConfig
 
 
 # (setup, algo) -> the setup of tests/test_kernels.py (SVM, 10 devices in
@@ -176,18 +149,25 @@ def test_entry_points_refuse_quietly_running_elsewhere(monkeypatch):
     cfg, data, topo = _setup("kernels_svm")
     args = (make_sim_model("svm", 784, 10), data, TopologyConfig(**topo),
             TTHFConfig())
+    # netsim dynamics run in sim mode; the fog hierarchy is still to port
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         TTHFTrainer(*args, device="cpu", program=RoundProgram(
-            dynamics=DynamicsConfig(name="x", p_link_fail=0.1)))
+            hierarchy=HierarchyConfig(levels=3, taus=(5, 10),
+                                      sample=(1, 0))))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TTHFTrainer(*args)
-    # scale mode runs the dense kind; the other kinds are still to port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        train_cli.main(["--mode", "scale", "--arch", "mamba2-370m",
+    # scale mode runs the dense and ssm kinds; the others are still to port
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+        train_cli.main(["--mode", "scale", "--arch", "recurrentgemma-9b",
                         "--reduced", "--device", "cpu"])
+    # --scenario runs in sim mode; in scale mode it, and --control in
+    # either mode, are still to port
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        train_cli.main(["--scenario", "device_churn", "--device", "cpu"])
+        train_cli.main(["--mode", "scale", "--scenario", "device_churn",
+                        "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        train_cli.main(["--control", "connectivity", "--device", "cpu"])
 
 
 def test_train_cli_summary_line(capsys):
