@@ -5,12 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's six main paths — the paper's Algorithm 1 in
+It drives the port's nine main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
 the 784-7840-10 NN), the same under the four dynamic netsim scenarios,
-TT-HF as the scale-mode sync strategy on the full-size qwen1.5-0.5b (24
-layers, d 1024, vocabulary 151,936) and on the full-size mamba2-370m (48
-Mamba-2 layers, d 1024, 32 SSD heads of 64, state 128), paged
+under the four fog presets and under the two control policies, TT-HF as
+the scale-mode sync strategy on the full-size qwen1.5-0.5b (24 layers, d
+1024, vocabulary 151,936), the same at 8 replicas under a fog tree and
+under the control plane, and on the full-size mamba2-370m (48 Mamba-2
+layers, d 1024, 32 SSD heads of 64, state 128), paged
 continuous-batching serving of qwen1.5-0.5b, and continuous-batching
 serving of mamba2-370m — and holds every kernel of those paths against
 its plain PyTorch version.
@@ -78,6 +80,24 @@ caught):
              through ``masked_loop`` (loss rtol 1e-4; gamma_used,
              active_devices and the ledger exactly); and the ``static``
              scenario equal to phase 3's run without one, exactly.
+3c. slice-fog — the same NN under each fog preset (``flat``, ``fog3``,
+             ``fog4``, ``fog3_sampled``), on the static topology and
+             under ``device_churn``, 80 steps (fog4's root fires at 80):
+             each consensus event through ``consensus_mix`` (64 launches
+             a run), each aggregation one composed (125, 125) device
+             matrix on every leaf (its share of the wall printed), held
+             to ``masked_loop`` (loss rtol 1e-4; gamma_used,
+             active_devices, the ledger and its uplinks by level
+             exactly); ``flat`` for 40 steps equal to phase 3's run.
+3d. slice-control — the same NN under the ``remark1`` (80 steps) and
+             ``connectivity`` (25 steps: its gradient probe takes some 18 s
+             an aggregation at this width) policies, static and under
+             ``device_churn``: Γ from the controller at each event through
+             ``consensus_mix``, held to ``masked_loop`` (as 3c, and the
+             aggregation calendar and every decision's Γ, τ, safe and
+             fallback exactly); the probe's time and card peak and τ's
+             trajectory printed; the ``static`` policy for 40 steps equal
+             to phase 3's run.
 4. scale   — ``ScaleTrainer`` on qwen1.5-0.5b at full size with the
              scale CLI's defaults (4 replicas in clusters of 2, batch 16
              per replica, seq 128, τ 20, consensus every 5, Γ 2, f32)
@@ -94,6 +114,15 @@ caught):
              a warm-up (8 ``fused_consensus_sgd`` launches), the per-leaf
              step held to it, and a reduced mamba2 on the card against
              the CPU.
+4c. scale-forms — the same qwen1.5-0.5b at 8 replicas in clusters of 2
+             (N 4; τ 20, consensus every 5, Γ 2, batch 16 x 128), (a)
+             under ``fog3`` and ``device_churn`` (the matrix form, each
+             interval's refreshed W, a root event at interval 2) and (b)
+             under ``connectivity`` and ``device_churn`` (the weights form
+             and a Γ retuned each interval): 2 fused intervals each (8
+             ``fused_consensus_sgd`` launches with the interval's W), the
+             per-leaf step held to it (loss rtol 1e-4, the same ledger,
+             the served global model within atol 1e-5).
 5. serve   — ``PagedContinuousScheduler`` on qwen1.5-0.5b at full size
              (random weights from seed 0, f32 weights and cache) through
              the serve CLI's trace (``launch/serve.py::make_arrivals``:
@@ -140,7 +169,10 @@ rest of the repository beside it, it exits non-zero and prints no result.
 ``--profile`` adds one profiled 20-step run of the sim path (static and
 under ``device_churn``), one profiled interval of each scale path and one
 profiled trace of each serve path, and prints the device time by kernel
-and the device's idle share.
+and the device's idle share. ``--phases slice-fog,slice-control,
+scale-forms`` (any of those and ``kernels``) builds the kernels and runs
+only those phases (the sim ones after phase 3's run), and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -624,6 +656,16 @@ class NumpyDraws:
             [self.rng.permutation(cluster_size)[:k]
              for _ in range(num_clusters)]))
 
+    def host_seed(self):
+        return int(self.rng.integers(0, 2**31 - 1))
+
+    def probe_minibatch(self, num_devices, draws, batch, points, seed):
+        import torch
+        if not hasattr(self, "probe_rng"):
+            self.probe_rng = np.random.default_rng(seed)
+        return torch.from_numpy(self.probe_rng.integers(
+            0, points, size=(num_devices, draws, batch)))
+
 
 def sim_setup():
     """The paper's Sec. IV setup: 125 devices in 25 geometric clusters,
@@ -861,6 +903,406 @@ def phase_slice_netsim(plain_run: dict, profile: bool = False) -> int:
     return total
 
 
+FOG_PRESETS = ("flat", "fog3", "fog4", "fog3_sampled")
+SIM_SCENARIOS = (None, "device_churn")
+# the sim steps of each policy's runs in [slice-control]: connectivity's
+# gradient probe takes some 18 s an aggregation at the paper's width (15.6
+# GB of gradients to the host and the estimators in numpy), and its τ law
+# moves the calendar to an aggregation every 5 or 10 steps, so its runs
+# are cut to 25 steps (one aggregation, at 20, and its retuned τ)
+CONTROL_POLICIES = {"remark1": 80, "connectivity": 25}
+
+
+def sim_program_run(setup, program, run_steps, eval_every=10, **kw):
+    """One NN ``TTHFTrainer`` run of ``sim_setup()``'s ``setup`` under a
+    round ``program``, recording the iterations that aggregate and every
+    decision the controller opens. Returns the trainer, its state and
+    history, the wall time, the aggregation iterations and the
+    decisions."""
+    import torch
+    from repro_torch.core import TTHFTrainer
+    data, topo, nn, _ = setup
+    tr = TTHFTrainer(nn, data, topo, sim_algo(), batch_size=16,
+                     program=program, **kw)
+    res, aggs, decs = tr._resolver, [], []
+    resolve = res.resolve
+
+    def record(t, *args):
+        ev = resolve(t, *args)
+        if ev.aggregation is not None:
+            aggs.append(t)
+        if ev.control is not None and (not decs or decs[-1] is not
+                                       ev.control):
+            decs.append(ev.control)
+        return ev
+    res.resolve = record
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st, hist = tr.run(steps=run_steps, seed=0, eval_every=eval_every)
+    torch.cuda.synchronize()
+    return tr, st, hist, time.time() - t0, aggs, decs
+
+
+def sim_hold(name, tr, hist, tr2, hist2) -> None:
+    """A kernel run held to the same run through ``masked_loop``: loss
+    rtol 1e-4; gamma_used, active_devices and the ledger exactly."""
+    np.testing.assert_allclose(hist2.global_loss, hist.global_loss,
+                               rtol=1e-4)
+    assert [g.tolist() for g in hist2.gamma_used] == \
+        [g.tolist() for g in hist.gamma_used], name
+    assert hist2.active_devices == hist.active_devices, name
+    assert sim_ledger(tr2) == sim_ledger(tr), name
+    assert tr2.ledger.uplinks_by_level == tr.ledger.uplinks_by_level, name
+    assert tr2.ledger.delay(0.1) == tr.ledger.delay(0.1), name
+
+
+def sim_equals_plain(tag, hist, tr, plain_run) -> None:
+    """A 40-step run equal to ``phase_slice``'s run, exactly."""
+    assert hist.global_loss == plain_run["global_loss"], \
+        (tag, hist.global_loss, plain_run["global_loss"])
+    assert hist.global_acc == plain_run["global_acc"], tag
+    assert sim_ledger(tr) == plain_run["ledger"], tag
+
+
+def phase_slice_fog(plain_run: dict) -> int:
+    """The sim path at the paper's size under the four fog presets, each
+    on the static topology and under ``device_churn``, 80 steps (fog4's
+    root fires at 80): each consensus event through ``consensus_mix``,
+    each aggregation one composed (I, I) device matrix on every leaf,
+    held to ``masked_loop``; ``flat`` for 40 steps equal to
+    ``phase_slice``'s run. Returns the kernel runs' launches."""
+    import torch
+    from repro_torch.hierarchy import aggregate, presets
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.netsim import scenarios
+    from repro_torch.rounds import RoundProgram
+
+    steps = 80
+    tau = sim_algo().tau
+    events = steps // sim_algo().consensus_every
+    setup = sim_setup()
+
+    def program(name, scenario):
+        return RoundProgram(
+            dynamics=scenarios.get(scenario, seed=0) if scenario else None,
+            hierarchy=presets.get(name, tau=tau))
+
+    consensus_mix.launches = 0
+    tr, _, hist, wall, _, _ = sim_program_run(setup, program("flat", None),
+                                              40, use_kernel=True)
+    assert tr.tree is None and consensus_mix.launches == 32
+    sim_equals_plain("[slice-fog] flat", hist, tr, plain_run)
+    log(f"[slice-fog] flat: 40 steps in {wall:.3f} s, loss "
+        f"{hist.global_loss}: equal to the [slice] run without a hierarchy")
+    # warm-up of the matrix form (cuBLAS at (125, 125) x (125, M)) on
+    # both backends
+    for kw in (dict(use_kernel=True), dict(backend="masked_loop")):
+        wall0 = sim_program_run(setup, program("fog3", "device_churn"), 20,
+                                **kw)[3]
+        log(f"[slice-fog] warm-up fog3 under device_churn {kw}: 20 steps "
+            f"in {wall0:.3f} s")
+
+    total = 0
+    for name in FOG_PRESETS:
+        for scenario in SIM_SCENARIOS:
+            tag = f"{name}/{scenario or 'static'}"
+            prog = program(name, scenario)
+            torch.cuda.reset_peak_memory_stats()
+            consensus_mix.launches = 0
+            tr, st, hist, wall, aggs, _ = sim_program_run(
+                setup, prog, steps, use_kernel=True)
+            launches = consensus_mix.launches
+            peak = torch.cuda.max_memory_allocated()
+            assert tr.backend == "pallas", tag
+            assert np.isfinite(hist.global_loss).all(), (tag,
+                                                         hist.global_loss)
+            # one launch per parameter leaf per consensus event
+            assert launches == events * 4, (tag, launches)
+            total += launches
+            levels = tr.ledger.uplinks_by_level
+            if name != "flat":
+                assert tr.tree is not None and 2 in levels, (tag, levels)
+            if name == "fog4":
+                assert 3 in levels, (tag, levels)
+            # the (I, I) product's share: its device time at this run's
+            # fleet times the run's matrix events, over the wall time
+            share = ""
+            if tr.tree is not None:
+                ev = aggregate.build_event(
+                    np.random.default_rng(0), tr.tree, tr.hierarchy, steps,
+                    np.ones((tr.net.num_clusters, tr.net.cluster_size),
+                            bool))
+                M = torch.as_tensor(ev.device_matrix, device=tr.device)
+                ms = cuda_ms(lambda: aggregate.apply_device_matrix_pytree(
+                    st.params, M), 3)
+                share = (f", (I, I) product {ms:.3f} ms x {len(aggs)} = "
+                         f"{ms * len(aggs) / 1e3 / wall:.4f} of the wall")
+            del st
+            torch.cuda.reset_peak_memory_stats()
+            tr2, st2, hist2, wall2, aggs2, _ = sim_program_run(
+                setup, prog, steps, backend="masked_loop")
+            peak2 = torch.cuda.max_memory_allocated()
+            del st2
+            assert consensus_mix.launches == launches
+            assert aggs2 == aggs, (tag, aggs, aggs2)
+            sim_hold(tag, tr, hist, tr2, hist2)
+            log(f"[slice-fog] {tag}: kernel {steps} steps in {wall:.3f} s = "
+                f"{steps / wall:.3f} steps/s, consensus_mix launches "
+                f"{launches}, max_memory_allocated {peak} B; masked_loop "
+                f"{steps / wall2:.3f} steps/s, max_memory_allocated {peak2} "
+                f"B; loss {hist.global_loss} (masked_loop within rtol "
+                f"1e-4), aggregations at {aggs}, uplinks_by_level "
+                f"{dict(levels)}, active_devices {hist.active_devices}, "
+                f"ledger {sim_ledger(tr)}{share}")
+            torch.cuda.empty_cache()
+    return total
+
+
+def phase_slice_control(plain_run: dict) -> int:
+    """The sim path at the paper's size under the ``remark1`` and
+    ``connectivity`` policies, each on the static topology and under
+    ``device_churn``: Γ from the controller at each consensus event
+    through ``consensus_mix``, τ retuned at each aggregation
+    (``connectivity``) after the gradient probe, held to ``masked_loop``
+    (loss rtol 1e-4; gamma_used, active_devices, the ledger, the
+    aggregation calendar and every decision's Γ, τ, safe and fallback
+    exactly); the ``static`` policy for 40 steps equal to
+    ``phase_slice``'s run. The runs take ``CONTROL_POLICIES``' steps.
+    Returns the kernel runs' launches."""
+    import torch
+    from repro_torch.configs.base import ControlConfig
+    from repro_torch.control import get_policy
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.netsim import scenarios
+    from repro_torch.rounds import RoundProgram
+
+    setup = sim_setup()
+
+    def program(policy, scenario):
+        return RoundProgram(
+            dynamics=scenarios.get(scenario, seed=0) if scenario else None,
+            control=get_policy(policy) if policy else ControlConfig())
+
+    consensus_mix.launches = 0
+    tr, _, hist, wall, _, _ = sim_program_run(setup, program(None, None),
+                                              40, use_kernel=True)
+    assert tr._resolver.controller is None and consensus_mix.launches == 32
+    sim_equals_plain("[slice-control] static", hist, tr, plain_run)
+    log(f"[slice-control] static policy: 40 steps in {wall:.3f} s, loss "
+        f"{hist.global_loss}: equal to the [slice] run without one")
+
+    def probed():
+        """A list the probe's times and card peaks go to, the trainer's
+        ``_observe_control_grads`` and its timed stand-in (host work
+        included)."""
+        probes = []
+        orig = TTHFTrainer._observe_control_grads
+
+        def timed(self, st):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            t0 = time.time()
+            orig(self, st)
+            torch.cuda.synchronize()
+            probes.append((time.time() - t0,
+                           torch.cuda.max_memory_allocated() - base))
+        return probes, orig, timed
+
+    def decisions(decs):
+        return [(d.t, d.safe, d.fallback, np.asarray(d.gammas).tolist()
+                 if d.gammas is not None else None, d.tau_next)
+                for d in decs]
+
+    from repro_torch.core import TTHFTrainer
+    total = 0
+    for policy, steps in CONTROL_POLICIES.items():
+        events = steps // sim_algo().consensus_every
+        for scenario in SIM_SCENARIOS:
+            tag = f"{policy}/{scenario or 'static'}"
+            prog = program(policy, scenario)
+            runs = []
+            for kw in (dict(use_kernel=True), dict(backend="masked_loop")):
+                probes, orig, timed = probed()
+                TTHFTrainer._observe_control_grads = timed
+                try:
+                    torch.cuda.reset_peak_memory_stats()
+                    consensus_mix.launches = 0
+                    out = sim_program_run(setup, prog, steps, **kw)
+                finally:
+                    TTHFTrainer._observe_control_grads = orig
+                runs.append(out + (consensus_mix.launches,
+                                   torch.cuda.max_memory_allocated(),
+                                   probes))
+            (tr, st, hist, wall, aggs, decs, launches, peak, probes), \
+                (tr2, st2, hist2, wall2, aggs2, decs2, launches2, peak2,
+                 probes2) = runs
+            del st, st2
+            assert np.isfinite(hist.global_loss).all(), (tag,
+                                                         hist.global_loss)
+            assert launches == events * 4, (tag, launches)
+            assert launches2 == 0, (tag, launches2)
+            total += launches
+            ctl = tr._resolver.controller
+            assert ctl is not None and ctl.counters()["fallbacks"] == 0, tag
+            assert aggs2 == aggs, (tag, aggs, aggs2)
+            assert decisions(decs2) == decisions(decs), tag
+            sim_hold(tag, tr, hist, tr2, hist2)
+            if policy == "connectivity":
+                assert len(probes) == len(aggs) > 0, (tag, probes, aggs)
+            else:
+                assert not probes, tag
+            taus = [d.tau_next for d in decs if d.tau_next is not None]
+            probe = ""
+            if probes:
+                secs = [p[0] for p in probes]
+                probe = (f", probe {np.mean(secs):.3f} s per aggregation "
+                         f"({[round(x, 3) for x in secs]}; masked_loop run "
+                         f"{np.mean([p[0] for p in probes2]):.3f} s), its "
+                         f"card peak above the fleet "
+                         f"{max(p[1] for p in probes)} B")
+            log(f"[slice-control] {tag}: kernel {steps} steps in {wall:.3f} "
+                f"s = {steps / wall:.3f} steps/s, consensus_mix launches "
+                f"{launches}, max_memory_allocated {peak} B; masked_loop "
+                f"{steps / wall2:.3f} steps/s, max_memory_allocated {peak2} "
+                f"B; loss {hist.global_loss} (masked_loop within rtol "
+                f"1e-4), aggregations at {aggs}, tau_next {taus}, Γ per "
+                f"event {[d[3] for d in decisions(decs)]}, delta_hat "
+                f"{decs[-1].delta_hat}, sigma_hat {decs[-1].sigma_hat}, "
+                f"active_devices {hist.active_devices}, ledger "
+                f"{sim_ledger(tr)}{probe}")
+            torch.cuda.empty_cache()
+    return total
+
+
+def scale_forms_programs() -> dict:
+    """(a) fog3 under device_churn: the matrix form, refreshes, the root
+    event; (b) connectivity under device_churn: the weights form and a Γ
+    retuned per interval."""
+    from repro_torch.control import get_policy
+    from repro_torch.hierarchy import presets
+    from repro_torch.netsim import scenarios
+    from repro_torch.rounds import RoundProgram
+    churn = scenarios.get("device_churn", seed=0)
+    return {"fog3-churn": RoundProgram(
+                hierarchy=presets.get("fog3", tau=20), dynamics=churn),
+            "connectivity-churn": RoundProgram(
+                control=get_policy("connectivity"), dynamics=churn)}
+
+
+def scale_forms_config():
+    """The scale CLI's τ 20, consensus every 5, Γ 2 and lr, at 8
+    replicas in ring clusters of 2 (N 4)."""
+    from repro_torch.core.distributed import TTHFScaleConfig
+    return TTHFScaleConfig(replicas=8, cluster_size=2, tau=20,
+                           consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
+
+
+def phase_scale_forms(intervals: int = 2, warm_up: bool = True) -> int:
+    """ScaleTrainer on the full-size qwen1.5-0.5b at 8 replicas under the
+    two programs of ``scale_forms_programs``: the fused interval through
+    ``fused_consensus_sgd`` with each interval's refreshed W (4 launches
+    an interval), the per-leaf step held to it (loss rtol 1e-4, the same
+    ledger, the served global model within atol 1e-5). ``warm_up``: one
+    interval first (not needed after ``phase_scale``, which runs the same
+    per-replica shapes through the same kernel). Returns the fused runs'
+    launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.fused_sgd import fused_sgd
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_arch("qwen1.5-0.5b")
+    scale = scale_forms_config()
+    tokens = intervals * scale.tau * scale.replicas * SCALE_BATCH * 128
+    w0 = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    programs = scale_forms_programs()
+
+    def run(name, fused, n, tag):
+        events = []
+        from repro_torch.rounds import RoundResolver
+        orig = RoundResolver.resolve_interval
+
+        def record(self, interval, draws):
+            ev = orig(self, interval, draws)
+            events.append(ev)
+            return ev
+        RoundResolver.resolve_interval = record
+        try:
+            out = scale_run(cfg, scale, fused, n, tag, weights=w0,
+                            program=programs[name])
+        finally:
+            RoundResolver.resolve_interval = orig
+        return out + (events,)
+
+    if warm_up:
+        tr, losses, wall, _, _ = run("fog3-churn", True, 1, "forms_warmup")
+        log(f"[scale-forms] warm-up fog3 under device_churn, fused interval "
+            f"at 8 replicas: 1 interval in {wall:.3f} s, loss {losses}")
+        del tr
+        torch.cuda.empty_cache()
+
+    total = 0
+    for name in programs:
+        torch.cuda.reset_peak_memory_stats()
+        fused_consensus_sgd.launches = consensus_mix.launches = 0
+        fused_sgd.launches = 0
+        tr, losses, wall, ledger, evs = run(name, True, intervals,
+                                            f"forms_{name}_fused")
+        launches = fused_consensus_sgd.launches
+        peak = torch.cuda.max_memory_allocated()
+        assert np.isfinite(losses).all() and len(losses) == intervals, \
+            (name, losses)
+        # one launch per consensus block, each with the interval's W
+        assert launches == intervals * scale.tau // scale.consensus_every, \
+            (name, launches)
+        assert consensus_mix.launches == fused_sgd.launches == 0
+        assert all(ev.refresh is not None for ev in evs), name
+        total += launches
+        served = [l.clone() for l in tree_leaves(tr._global_params())]
+        levels = dict(tr.ledger.uplinks_by_level)
+        gammas = [np.asarray(ev.billing.consensus_gammas).tolist()
+                  for ev in evs]
+        if name == "fog3-churn":
+            assert tr.tree is not None and evs[-1].root_served, name
+            assert 2 in levels, levels
+        else:
+            assert tr._resolver.controller.decisions == intervals
+        log(f"[scale-forms] {name}: fused interval, {intervals} intervals "
+            f"in {wall:.3f} s = {intervals / wall:.4f} intervals/s, "
+            f"{tokens / wall:.1f} tokens/s, loss {losses}, ledger {ledger}, "
+            f"uplinks_by_level {levels}, Γ per interval {gammas}, root "
+            f"served {[ev.root_served for ev in evs]}, fused_consensus_sgd "
+            f"launches {launches}, max_memory_allocated {peak} B")
+        del tr
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        fused_consensus_sgd.launches = 0
+        tr2, losses2, wall2, ledger2, evs2 = run(name, False, intervals,
+                                                 f"forms_{name}_perleaf")
+        peak2 = torch.cuda.max_memory_allocated()
+        assert fused_consensus_sgd.launches == 0
+        np.testing.assert_allclose(losses2, losses, rtol=1e-4)
+        assert ledger2 == ledger, (name, ledger2, ledger)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(tr2._global_params()), served))
+        assert diff <= 1e-5, (name, diff)
+        log(f"[scale-forms] {name}: per-leaf step, {intervals} intervals in "
+            f"{wall2:.3f} s = {tokens / wall2:.1f} tokens/s, loss {losses2} "
+            f"(rtol 1e-4 vs the fused run), same ledger, "
+            f"max_memory_allocated {peak2} B, served model ({QWEN_P} "
+            f"parameters) max |diff| {diff:.3e} (atol 1e-5)")
+        del tr2, served
+        torch.cuda.empty_cache()
+    del w0
+    torch.cuda.empty_cache()
+    return total
+
+
 def read_losses(path: Path) -> list:
     """The per-interval train losses a run's metric log wrote."""
     return [json.loads(line)["train_loss"]
@@ -877,10 +1319,11 @@ def scale_cli_config():
 
 def scale_run(c, sc, fused: bool, intervals: int, name: str, *,
               batch=SCALE_BATCH, seq=128, device="cuda", weights=None,
-              seed=0):
-    """One ``ScaleTrainer`` run from ``weights`` with numpy draws; its
-    metric log goes to chiprun_out/scale_<name>.jsonl. Returns the
-    trainer, the per-interval losses, the wall time and the ledger."""
+              seed=0, program=None):
+    """One ``ScaleTrainer`` run from ``weights`` with numpy draws (under
+    the round ``program``, if given); its metric log goes to
+    chiprun_out/scale_<name>.jsonl. Returns the trainer, the per-interval
+    losses, the wall time and the ledger."""
     import torch
     from repro_torch.train import ScaleTrainer, TrainerConfig
     out_dir = ROOT / "chiprun_out"
@@ -890,7 +1333,7 @@ def scale_run(c, sc, fused: bool, intervals: int, name: str, *,
     tr = ScaleTrainer(c, sc, TrainerConfig(
         batch_per_replica=batch, seq_len=seq, intervals=intervals,
         eval_every=0, seed=0, fused_interval=fused,
-        log_path=str(log_path)), device=device)
+        log_path=str(log_path)), program=program, device=device)
     tr.init(w0=weights, draws=NumpyDraws(seed))
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1932,10 +2375,36 @@ def profile_main_path(fn, label: str) -> None:
     busy_us = sum(device_us(e) for e in events)
     log(f"[profile] {label}: wall {wall:.3f} s, device busy "
         f"{busy_us / 1e6:.3f} s, idle share {1 - busy_us / 1e6 / wall:.3f}")
+    for kind in ("HtoD", "DtoH"):
+        copies = [e for e in events if f"Memcpy {kind}" in e.key]
+        log(f"[profile] copies {kind}: {sum(e.count for e in copies)}, "
+            f"{sum(device_us(e) for e in copies) / 1e3:.3f} ms")
     for e in sorted(events, key=device_us, reverse=True)[:15]:
         if device_us(e) > 0:
             log(f"[profile] {device_us(e) / 1e3:10.3f} ms {e.count:6d}x "
                 f"{e.key[:90]}")
+
+
+def phases_arg(argv) -> "list | None":
+    """``--phases a,b``: run only those phases (``PARTIAL_PHASES``)."""
+    for i, a in enumerate(argv):
+        if a == "--phases":
+            names = argv[i + 1].split(",")
+            bad = sorted(set(names) - set(PARTIAL_PHASES))
+            if bad:
+                raise SystemExit(f"unknown phases {bad}; choose from "
+                                 f"{sorted(PARTIAL_PHASES)}")
+            return names
+    return None
+
+
+# the phases ``--phases`` can run alone
+PARTIAL_PHASES = {
+    "kernels": lambda: (phase_kernels(), phase_fused_kernels()),
+    "slice-fog": phase_slice_fog,
+    "slice-control": phase_slice_control,
+    "scale-forms": phase_scale_forms,
+}
 
 
 def main() -> int:
@@ -1961,6 +2430,19 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    only = phases_arg(sys.argv[1:])
+    if only is not None:
+        # a quick check of some phases: no kernels line and no result;
+        # the sim phases are held to phase 3's run
+        slice_run = None
+        for name in only:
+            args = ()
+            if name.startswith("slice-"):
+                slice_run = slice_run or timed("slice", phase_slice)
+                args = (slice_run,)
+            timed(name, PARTIAL_PHASES[name], *args)
+        log(f"[partial] phases {only} passed; no result line")
+        return 0
     numbers = {"consensus_mix": timed("kernels", phase_kernels),
                **timed("fused kernels", phase_fused_kernels)}
     numbers["paged_decode"] = timed("paged kernel", phase_paged_kernel)
@@ -1970,12 +2452,17 @@ def main() -> int:
     by_path = {"consensus_mix": {
         "slice": slice_run["launches"],
         "slice-netsim": timed("slice-netsim", phase_slice_netsim, slice_run,
-                              profile=profile)}}
+                              profile=profile),
+        "slice-fog": timed("slice-fog", phase_slice_fog, slice_run),
+        "slice-control": timed("slice-control", phase_slice_control,
+                               slice_run)}}
     scale_launches = timed("scale", phase_scale, profile=profile)
     by_path["fused_sgd"] = {"scale": scale_launches["fused_sgd"]}
     by_path["fused_consensus_sgd"] = {
         "scale": scale_launches["fused_consensus_sgd"],
-        "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile)}
+        "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile),
+        "scale-forms": timed("scale-forms", phase_scale_forms,
+                             warm_up=False)}
     by_path["paged_decode"] = {"serve": timed("serve", phase_serve,
                                               profile=profile)}
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,

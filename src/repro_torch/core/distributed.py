@@ -22,11 +22,15 @@ memory: a step updates the parameters it is given (the microsteps write
 into them) and returns the interval's result, which the caller keeps.
 The reference's buffer donation has no other counterpart.
 
-Ported: the static ``picks`` aggregation form (one sampled replica per
-cluster) for ``sync`` in {tthf, star, local} and every mixing backend
-(``consensus_mode`` fused | rounds | the backend names). The ``weights``
-form (``sample_per_cluster > 1``, netsim refresh) and the ``matrix`` form
-(fog hierarchy) raise: they come with ROADMAP.md Queue 1 item 4.
+Ported: all three aggregation forms of the reference, for ``sync`` in
+{tthf, star, local} and every mixing backend (``consensus_mode`` fused |
+rounds | the backend names): ``picks`` (one sampled replica per
+cluster), ``weights`` (the (N, s) per-device weights: multi-sampling,
+netsim dynamics, the control plane) and ``matrix`` (a fog hierarchy's
+composed (R, R) device matrix), with per-interval refreshes of the
+mixing matrices (``refreshable``). The weights and matrix forms work in
+place: the matrix form in column blocks of the buffer, so that at 8
+replicas of qwen1.5-0.5b it never holds a second (R, P) buffer.
 """
 from __future__ import annotations
 
@@ -44,6 +48,10 @@ from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.common import (
     tree_from_items, tree_items, tree_leaves, tree_map)
 from repro_torch.models.registry import ModelApi
+
+# columns of the (R, P) buffer (or of a leaf) that the matrix form maps at
+# a time: a (R, 2^22) f32 block is 128 MiB at R = 8
+MATRIX_BLOCK_COLS = 1 << 22
 
 SYNCS = ("tthf", "star", "local")
 
@@ -106,6 +114,52 @@ def sampled_aggregation(params: dict, net: Network,
     return tree_map(lambda leaf: _broadcast(
         _sampled_global(leaf.reshape(N, s, -1), net, picks), leaf.shape),
         params)
+
+
+def _weighted_rows(x: torch.Tensor, net: Network,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """x: (R, M) -> the same rows, each set to sum_{c,i} w[c, i] x[c, i]
+    in place; an all-dark event (weights summing to 0) leaves them as
+    they were, decided on the device (no host sync)."""
+    N, s = net.num_clusters, net.cluster_size
+    w = weights.to(device=x.device, dtype=x.dtype)
+    g = torch.einsum("cs,csm->m", w, x.view(N, s, -1))
+    alive = w.sum() > 0
+    for row in x:
+        row.copy_(torch.where(alive, g, row))
+    return x
+
+
+def weighted_aggregation(params: dict, net: Network,
+                         weights: torch.Tensor) -> dict:
+    """Availability-aware eq. (7) over the replica axis, in place.
+
+    ``weights``: the (N, s) per-device aggregation weights from
+    :func:`repro_torch.netsim.faults.aggregation_weights`: every sampled
+    replica enters with its renormalized weight, a dark cluster's
+    replicas with 0. The global model goes to every replica (replicas are
+    physical shards); an all-dark event is the identity."""
+    for leaf in tree_leaves(params):
+        _weighted_rows(leaf.view(leaf.shape[0], -1), net, weights)
+    return params
+
+
+def _matrix_rows(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """x: (R, K) <- M @ x in place, ``MATRIX_BLOCK_COLS`` columns at a
+    time (out of place for each block, then copied back)."""
+    M = M.to(device=x.device, dtype=x.dtype)
+    for c0 in range(0, x.shape[1], MATRIX_BLOCK_COLS):
+        blk = x[:, c0:c0 + MATRIX_BLOCK_COLS]
+        blk.copy_(M @ blk)
+    return x
+
+
+def apply_device_matrix_pytree(params: dict, M: torch.Tensor) -> dict:
+    """A fog hierarchy's composed (R, R) event matrix on every leaf
+    (leaves (R, ...)), in place. Hold-rows (e_i) are built into M."""
+    for leaf in tree_leaves(params):
+        _matrix_rows(leaf.view(leaf.shape[0], -1), M)
+    return params
 
 
 def full_aggregation(params: dict, net: Network) -> dict:
@@ -209,6 +263,16 @@ def sampled_aggregation_flat(flat: torch.Tensor, net: Network,
                       flat.shape)
 
 
+def weighted_aggregation_flat(flat: torch.Tensor, net: Network,
+                              weights: torch.Tensor) -> torch.Tensor:
+    return _weighted_rows(flat, net, weights)
+
+
+def apply_device_matrix_flat(flat: torch.Tensor,
+                             M: torch.Tensor) -> torch.Tensor:
+    return _matrix_rows(flat, M)
+
+
 def full_aggregation_flat(flat: torch.Tensor, net: Network) -> torch.Tensor:
     N, s = net.num_clusters, net.cluster_size
     z = flat.view(N, s, -1).mean(dim=1)
@@ -247,17 +311,21 @@ def _mean(losses: list) -> torch.Tensor:
     return torch.stack(losses).mean()
 
 
-def _refuse_unported(scale: TTHFScaleConfig, sync: str, refreshable: bool,
-                     hierarchy) -> None:
+def _check(scale: TTHFScaleConfig, sync: str, hierarchy) -> None:
+    """The reference's assertions, as ``ValueError``s."""
     if sync not in SYNCS:
         raise ValueError(f"unknown sync {sync!r}; expected one of {SYNCS}")
-    if refreshable or scale.sample_per_cluster > 1 or (
-            hierarchy is not None and not hierarchy.is_flat):
-        raise NotImplementedError(
-            "the port's scale step aggregates with the static picks form "
-            "only; the weights form (sample_per_cluster > 1, netsim "
-            "refresh) and the matrix form (fog hierarchy) come with "
-            "ROADMAP.md Queue 1 item 4")
+    if hierarchy is not None:
+        if sync != "tthf":
+            raise ValueError("hierarchical aggregation implies tthf sync")
+        if hierarchy.taus[0] != scale.tau:
+            raise ValueError(
+                f"tier-1 period {hierarchy.taus[0]} must equal the "
+                f"interval length tau={scale.tau}")
+        if hierarchy.sample[0] != scale.sample_per_cluster:
+            raise ValueError(
+                f"tier-1 fan-in {hierarchy.sample[0]} must equal "
+                f"sample_per_cluster={scale.sample_per_cluster}")
     if scale.tau % scale.consensus_every:
         raise ValueError(f"consensus_every={scale.consensus_every} must "
                          f"divide tau={scale.tau}")
@@ -270,13 +338,28 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
                          fused_kernel: Optional[bool] = None,
                          param_dtype=torch.float32,
                          device: DeviceLike = None):
-    """Returns ``(step, net)``; ``step(params, batch, picks, step_idx) ->
-    (params, loss)`` runs one aggregation interval.
+    """Returns ``(step, net)``; ``step(params, batch, agg, step_idx=None,
+    mix_refresh=None) -> (params, loss)`` runs one aggregation interval.
 
     params: every leaf has a leading replica axis R (per-leaf step), or
     the flat ``(R, P)`` buffer of ``step.spec`` (``fused_interval=True``).
-    batch: {"tokens", "labels"} of shape (tau, R, b, T). picks: (N,) the
-    sampled replica of each cluster (read by ``sync="tthf"`` only).
+    batch: {"tokens", "labels"} of shape (tau, R, b, T). ``agg`` (read by
+    ``sync="tthf"`` only; moved to the step's device) takes one form per
+    build, as in the reference:
+
+    * default — ``picks``: (N,) the sampled replica of each cluster;
+    * ``sample_per_cluster > 1`` or ``refreshable=True`` — the (N, s)
+      per-device weights of :func:`repro_torch.netsim.faults.
+      aggregation_weights`: all k sampled replicas of a cluster enter the
+      aggregate, dark clusters carry 0, an all-dark event is the
+      identity. ``refreshable`` (netsim dynamics, the control plane) also
+      takes ``mix_refresh``, the interval's mixing matrices from
+      :func:`repro_torch.core.mixing.refresh_matrices` (the stacked powers
+      ``W = V^Gamma`` for the fused backend, the masked V otherwise);
+    * ``hierarchy`` (a non-flat ``HierarchyConfig``) — the composed (R, R)
+      device matrix of a :class:`~repro_torch.hierarchy.aggregate.
+      HierarchyEvent`, whatever the depth. A flat hierarchy is TT-HF and
+      takes the picks form.
     ``dtype`` is the compute dtype of the model, ``param_dtype`` the flat
     buffer's. The step's matrices live on ``device`` (the CUDA device by
     default, see :func:`~repro_torch.kernels.runtime.resolve_device`).
@@ -292,7 +375,9 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
     sync: "tthf" (Algorithm 1) | "star" (FedAvg: full participation, no
     D2D) | "local" (no sync at all — diagnostics).
     """
-    _refuse_unported(scale, sync, refreshable, hierarchy)
+    if hierarchy is not None and hierarchy.is_flat:
+        hierarchy = None            # plain TT-HF
+    _check(scale, sync, hierarchy)
     device = resolve_device(device)
     net = scale.network()
     n_blocks = scale.tau // scale.consensus_every
@@ -301,13 +386,28 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         plan = build_mixing_plan(net, scale.gamma_d2d,
                                  backend=scale.consensus_mode, device=device)
     ce = scale.consensus_every
+    # one aggregation form per build: its (per-leaf, flat) functions
+    agg_kind = ("matrix" if hierarchy is not None
+                else "weights" if (refreshable or
+                                   scale.sample_per_cluster > 1)
+                else "picks")
+    agg_fns = {
+        "picks": (sampled_aggregation, sampled_aggregation_flat),
+        "weights": (weighted_aggregation, weighted_aggregation_flat),
+        "matrix": (lambda p, _, m: apply_device_matrix_pytree(p, m),
+                   lambda f, _, m: apply_device_matrix_flat(f, m)),
+    }[agg_kind]
 
-    def aggregate(params, picks, sampled, full):
+    def aggregate(params, agg, flat: bool):
         if sync == "tthf":
-            return sampled(params, net, picks)
+            return agg_fns[flat](params, net, agg.to(device))
         if sync == "star":
-            return full(params, net)
+            return (full_aggregation_flat if flat
+                    else full_aggregation)(params, net)
         return params
+
+    def mix_active(refresh) -> bool:
+        return plan is not None and not (plan.is_noop and refresh is None)
 
     def block_batches(batch, b):
         return [{k: v[b * ce + t] for k, v in batch.items()}
@@ -316,8 +416,8 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
     if fused_interval:
         return _make_fused_interval_step(
             model, scale, net=net, plan=plan, n_blocks=n_blocks,
-            block_batches=block_batches, aggregate=aggregate, dtype=dtype,
-            fused_kernel=fused_kernel,
+            block_batches=block_batches, aggregate=aggregate,
+            mix_active=mix_active, dtype=dtype, fused_kernel=fused_kernel,
             param_dtype=param_dtype, device=device)
 
     def microstep(params, mb, lr):
@@ -335,23 +435,23 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
             losses.append(loss)
         return _mean(losses)
 
-    def mix(params):
-        if plan is None or plan.is_noop:
+    def mix(params, refresh):
+        if not mix_active(refresh):
             return params
         N, s = net.num_clusters, net.cluster_size
-        return tree_map(lambda l: plan.apply(l.reshape(N, s, -1))
+        return tree_map(lambda l: plan.apply(l.reshape(N, s, -1),
+                                             refresh=refresh)
                         .reshape(l.shape).to(l.dtype), params)
 
-    def step(params, batch, picks, step_idx=None):
+    def step(params, batch, agg, step_idx=None, mix_refresh=None):
         lr = torch.full((), scale.lr, dtype=torch.float32, device=device)
         block_losses = []
         for b in range(n_blocks):
             losses = [microstep(params, mb, lr)
                       for mb in block_batches(batch, b)]
-            params = mix(params)
+            params = mix(params, mix_refresh)
             block_losses.append(_mean(losses))
-        params = aggregate(params, picks, sampled_aggregation,
-                           full_aggregation)
+        params = aggregate(params, agg, flat=False)
         return params, _mean(block_losses)
 
     return step, net
@@ -360,7 +460,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
 def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                               net: Network, plan: Optional[MixingPlan],
                               n_blocks: int, block_batches, aggregate,
-                              dtype,
+                              mix_active, dtype,
                               fused_kernel: Optional[bool], param_dtype,
                               device: torch.device):
     """The ``fused_interval=True`` build — see ``make_tthf_train_step``.
@@ -369,13 +469,12 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
     (views into the buffer), the same elementwise update, and mixes and
     aggregations that are per-column identical to their per-leaf
     counterparts. The kernel block-end rounds the last update and the
-    mix as the separate ops do, so it carries the kernel's tolerance."""
+    mix as the separate ops do, so it carries the kernel's tolerance. A
+    refreshed interval's block ends take its ``W`` (``plan.fused_w
+    (mix_refresh)``)."""
     spec = FlatParamSpec.for_model(model, dtype=param_dtype)
     N, s = net.num_clusters, net.cluster_size
     use_kernel = fused_kernel is None or fused_kernel
-    mix_active = plan is not None and not plan.is_noop
-    W0 = plan.fused_w() if mix_active else None
-    kernel_end = use_kernel and W0 is not None
 
     def replica_grads(flat, mb, r):
         return _loss_and_grads(model, spec.unflatten_one(flat[r]),
@@ -404,8 +503,11 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
             losses.append(loss)
         return g, _mean(losses)
 
-    def step(flat, batch, picks, step_idx=None):
+    def step(flat, batch, agg, step_idx=None, mix_refresh=None):
         lr = torch.full((), scale.lr, dtype=torch.float32, device=device)
+        active = mix_active(mix_refresh)
+        W0 = plan.fused_w(mix_refresh) if active else None
+        kernel_end = use_kernel and W0 is not None
         block_losses = []
         for b in range(n_blocks):
             mbs = block_batches(batch, b)
@@ -425,13 +527,13 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                     flat = torch.einsum(
                         "nij,njm->nim", W0.to(flat.dtype),
                         flat.view(N, s, -1)).reshape(flat.shape)
-                elif mix_active:
+                elif active:
                     # non-fused_power backend: exact per-event semantics
-                    flat = plan.apply(flat.view(N, s, -1)
+                    flat = plan.apply(flat.view(N, s, -1),
+                                      refresh=mix_refresh
                                       ).reshape(flat.shape).to(flat.dtype)
             block_losses.append(_mean(losses))
-        flat = aggregate(flat, picks, sampled_aggregation_flat,
-                         full_aggregation_flat)
+        flat = aggregate(flat, agg, flat=True)
         return flat, _mean(block_losses)
 
     step.spec = spec
@@ -439,7 +541,9 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
 
 
 __all__ = [
-    "FlatParamSpec", "LANE", "SYNCS", "TTHFScaleConfig",
+    "FlatParamSpec", "LANE", "MATRIX_BLOCK_COLS", "SYNCS", "TTHFScaleConfig",
+    "apply_device_matrix_flat", "apply_device_matrix_pytree",
     "full_aggregation", "full_aggregation_flat", "make_tthf_train_step",
     "sampled_aggregation", "sampled_aggregation_flat", "stack_replicas",
+    "weighted_aggregation", "weighted_aggregation_flat",
 ]

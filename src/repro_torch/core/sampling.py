@@ -8,17 +8,23 @@ the cluster.
 
 Draws cross a seam: torch cannot reproduce JAX's threefry streams, so
 the trainer takes its minibatch indices and per-cluster picks from a
-*draw source* with three methods, ``minibatch(I, B, D) -> (I, B)`` (one
+*draw source* with four methods, ``minibatch(I, B, D) -> (I, B)`` (one
 call per local-SGD iteration), ``picks(N, s, k) -> (N,) | (N, k)`` (one
 call per sampled aggregation on the static topology, after the
-iterations that precede it) and ``host_seed() -> int`` (one call per
-sampled aggregation under netsim dynamics, in place of the picks: it
-seeds the host generator that samples among the available devices).
-:class:`TorchDraws` is the default source; a test can hand the trainer
-any other object with those methods, such as one that replays the
-reference's key schedule.
+iterations that precede it), ``host_seed() -> int`` (one call per
+aggregation that samples on the host, in place of the picks: under
+netsim dynamics, down a fog tree or under the control plane, it seeds
+the host generator) and ``probe_minibatch(I, K, B, D, seed) -> (I, K,
+B)`` (one call per gradient probe of the control plane: K minibatches
+per device from a stream of its own, seeded once with ``seed``, that
+never touches the training draws). Scale mode calls one of ``picks``
+and ``host_seed`` per interval. :class:`TorchDraws` is the default
+source; a test can hand the trainer any other object with those
+methods, such as one that replays the reference's key schedule.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,6 +57,7 @@ class TorchDraws:
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
+        self._probe: Optional[torch.Generator] = None
 
     def minibatch(self, num_devices: int, batch: int,
                   points: int) -> torch.Tensor:
@@ -68,6 +75,15 @@ class TorchDraws:
     def host_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (), generator=self.generator,
                                  device=self.generator.device))
+
+    def probe_minibatch(self, num_devices: int, draws: int, batch: int,
+                        points: int, seed: int) -> torch.Tensor:
+        if self._probe is None:
+            self._probe = torch.Generator(
+                device=self.generator.device).manual_seed(seed)
+        return torch.randint(0, points, (num_devices, draws, batch),
+                             generator=self._probe,
+                             device=self._probe.device)
 
 
 def _take(z: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Algorithm 1 — the TT-HF simulation engine; the port of ``repro/core/
-tthf.py`` for the static topology and under netsim dynamics.
+tthf.py``: the static topology, netsim dynamics, the fog hierarchy and the
+control plane.
 
 The device fleet is stacked: every parameter leaf carries a leading
 device axis ``I = N * s``. Local SGD runs all devices at once (batched
@@ -19,9 +20,15 @@ sampling`) instead of a JAX key.
 Under netsim dynamics (``dynamics=``, :mod:`repro_torch.netsim`) a dark
 device takes no step and holds its parameters, each consensus event
 mixes with the event's V on the active subgraph, and an aggregation
-weighs the available devices and broadcasts only to them. Fog
-hierarchies and the control plane are not ported yet (ROADMAP.md Queue
-1 item 4).
+weighs the available devices and broadcasts only to them. Under a fog
+hierarchy (``hierarchy=``, :mod:`repro_torch.hierarchy`) an aggregation
+is one composed ``(I, I)`` device matrix applied to every leaf (the
+``matrix`` form), and the served global model changes only when the root
+fires. Under the control plane (``program=RoundProgram(control=...)``,
+:mod:`repro_torch.control`) Γ comes from the controller's law on each
+event's fresh Υ, and the ``connectivity`` policy's gradient probe feeds
+its δ̂/σ̂ estimators at every aggregation, from minibatches of a stream
+of its own (``draws.probe_minibatch``).
 
 Baselines (Sec. IV-B) are the same engine with ``mode``:
   * ``tthf``        — Algorithm 1 (sampled aggregation + D2D consensus)
@@ -47,6 +54,8 @@ from repro_torch.core.schedule import (
     adaptive_gamma_info, fixed_gamma, make_lr_schedule)
 from repro_torch.core.topology import Network, build_network
 from repro_torch.data.synth import FederatedDataset
+from repro_torch.hierarchy.aggregate import (
+    apply_device_matrix_pytree, global_from_weights)
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.simple import SimModel
 from repro_torch.netsim.faults import weighted_global_pytree
@@ -115,7 +124,10 @@ class TTHFTrainer:
         self.program = program
         self._resolver = RoundResolver.for_sim(
             self.net, algo, program, topo_weights=topo_cfg.weights)
+        self.dynamics = program.dynamics
+        self.hierarchy = self._resolver.hierarchy
         self.tvnet = self._resolver.tvnet
+        self.tree = self._resolver.tree
         # consensus backend (core/mixing.py): the masked bounded loop by
         # default; use_kernel routes through the consensus_mix kernel
         if backend is None:
@@ -262,12 +274,26 @@ class TTHFTrainer:
         ``(per-cluster rounds used, clamp events)``. A static spec mixes
         on the base topology; a dynamic one mixes with the event's V on
         the active subgraph, and a cluster with no live edge neither
-        runs nor bills rounds."""
+        runs nor bills rounds. A spec carrying a controller's decision
+        gets Γ from the controller's law on the event's fresh Υ instead
+        of the built-in schedule."""
         algo = self.algo
         N = self.net.num_clusters
         dev = self.device
+        dec = spec.control
         sat = 0
-        if algo.gamma_d2d >= 0:
+        if dec is not None:
+            if spec.dynamic:
+                ups = self._upsilon_dyn(
+                    st.params, torch.as_tensor(spec.device_up, device=dev))
+                sizes = np.asarray(spec.active_sizes)
+            else:
+                ups = self._upsilon(st.params)
+                sizes = self.net.cluster_size
+            gamma = torch.as_tensor(self._resolver.controller.gamma_for(
+                dec, float(eta_t), ups.cpu().numpy(), sizes), device=dev)
+            sat = dec.gamma_saturated
+        elif algo.gamma_d2d >= 0:
             gamma = fixed_gamma(N, algo.gamma_d2d, dev)
         else:
             if spec.dynamic:
@@ -294,21 +320,32 @@ class TTHFTrainer:
 
     @torch.no_grad()
     def _apply_aggregation(self, st: TTHFState, spec) -> None:
-        """Apply a resolved aggregation: the sampled (or full) eq. (7)
-        on the static topology, or the availability-aware weights under
-        dynamics, broadcast only to the devices that are up (offline
-        devices cannot hear the server)."""
+        """Apply a resolved aggregation, in one of three forms: the
+        sampled (or full) eq. (7) on the static topology; the
+        availability-aware weights under dynamics, broadcast only to the
+        devices that are up (offline devices cannot hear the server); or
+        a fog hierarchy's composed (I, I) device matrix on every leaf,
+        where the served global model changes only when the root fired
+        (``global_weights`` set)."""
+        dev = self.device
         if spec.kind == "static":
             g, st.params = self._aggregate(st.params, st.draws,
                                            full=spec.full)
-        else:
+        elif spec.kind == "weights":
             w = torch.as_tensor(spec.weights, dtype=torch.float32,
-                                device=self.device)
+                                device=dev)
             g = weighted_global_pytree(st.params, w, self.net.num_clusters)
-            up = torch.as_tensor(spec.device_up.reshape(-1),
-                                 device=self.device)
+            up = torch.as_tensor(spec.device_up.reshape(-1), device=dev)
             for k, leaf in st.params.items():
                 leaf[up] = g[k]
+        else:                       # "matrix": the fog hierarchy
+            g = st.global_params
+            if spec.global_weights is not None:
+                g = global_from_weights(
+                    st.params, torch.as_tensor(spec.global_weights,
+                                               device=dev))
+            st.params = apply_device_matrix_pytree(
+                st.params, torch.as_tensor(spec.device_matrix, device=dev))
         st.global_params = g
 
     def _local_span(self, st: TTHFState, t_from: int, t_to: int) -> int:
@@ -332,18 +369,75 @@ class TTHFTrainer:
         return live
 
     # ------------------------------------------------------------------
+    # control-plane measurements: the gradient statistics of the online
+    # δ̂/σ̂ estimators, from the draw source's probe stream (the training
+    # draws are untouched)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _probe_grads(self, global_params: dict, x: torch.Tensor,
+                     y: torch.Tensor, out: np.ndarray) -> None:
+        """Every device's gradient at the global iterate on its own
+        points ``x (I, B, m)``, written into ``out (I, M)`` on the host
+        leaf by leaf in the reference's flat order (sorted keys)."""
+        I = x.shape[0]
+        fleet = {k: v.expand((I,) + tuple(v.shape))
+                 for k, v in global_params.items()}
+        with torch.enable_grad():
+            g = self.model.grads(fleet, x, y)
+        dst = torch.from_numpy(out)
+        off = 0
+        for k in sorted(g):
+            n = g[k][0].numel()
+            dst[:, off:off + n].copy_(g[k].reshape(I, n))
+            off += n
+        del g
+
+    def _observe_control_grads(self, st: TTHFState) -> None:
+        """Feed the controller's window: per-cluster mean gradients (δ̂)
+        and ``sgd_probe_draws`` minibatch gradients per device (σ̂), all
+        at the fresh global iterate. The reference's probe returns
+        ``G (I, M)`` and ``Gmb (I, K, M)`` and copies both to the host;
+        here they are built there one ``(I, M)`` block at a time, so the
+        card holds one block of gradients, not K + 1."""
+        ctl = self._resolver.controller
+        K = ctl.cfg.sgd_probe_draws
+        I, D = self.y.shape
+        idx = st.draws.probe_minibatch(
+            I, K, self.batch_size, D, ctl.cfg.estimator_seed + 0x51F0
+        ).to(self.device)
+        M = self.model_dim
+        G = np.empty((I, M), np.float32)
+        self._probe_grads(st.global_params, self.x, self.y, G)
+        Gmb = np.empty((I, K, M), np.float32)
+        rows = torch.arange(I, device=self.device)[:, None]
+        for k in range(K):
+            sel = idx[:, k]
+            self._probe_grads(st.global_params, self.x[rows, sel],
+                              self.y[rows, sel], Gmb[:, k])
+        N, s = self.net.num_clusters, self.net.cluster_size
+        ctl.observe_cluster_grads(G.reshape(N, s, -1).mean(axis=1),
+                                  np.asarray(self.net.varrho))
+        ctl.observe_fleet_noise(Gmb, G)
+
+    # ------------------------------------------------------------------
     def run(self, steps: int, seed: int = 0, eval_every: int = 5,
             state: TTHFState | None = None,
             record_dispersion: bool = True) -> tuple[TTHFState, History]:
         """Drive Algorithm 1: the resolver names each boundary
         iteration's events; the local-SGD iterations up to it run, then
         the consensus event (if any) before the aggregation (if any),
-        then the round's bill and, on eval iterations, the history."""
+        the controller's gradient probe after an aggregation (the
+        ``connectivity`` policy), then the round's bill and, on eval
+        iterations, the history."""
         assert eval_every >= 1, "eval_every must be a positive period"
         obs = NULL_OBS
         st = state or self.init(seed)
         hist = History()
         res = self._resolver
+        ctl = res.controller
+        if ctl is not None:
+            ctl.bind(model_dim=self.model_dim,
+                     eta_fn=lambda u: float(self.eta(u)))
         N = self.net.num_clusters
         t_last = st.t + steps
         t = st.t + 1
@@ -367,6 +461,8 @@ class TTHFTrainer:
                         with obs.span("aggregation", t=b,
                                       kind=ev.aggregation.kind):
                             self._apply_aggregation(st, ev.aggregation)
+                        if ctl is not None and ctl.wants_grad_stats:
+                            self._observe_control_grads(st)
                     ev.billing.charge(self.ledger, gamma_used)
 
                     if b % eval_every == 0 or b == t_last:

@@ -1,16 +1,20 @@
 """Training entry point of the port, with the flags of
 ``repro/launch/train.py`` plus ``--device``. Two modes:
 
-* ``--mode sim``   — the paper's Algorithm 1 on the federated image task,
-                     on the static topology or under a netsim scenario
-                     (``--scenario``). D2D mixing always goes through the
-                     ``consensus_mix`` wrapper: on the CUDA device it
-                     launches the kernel, and on the CPU it runs the
-                     kernel's plain version.
+* ``--mode sim``   — the paper's Algorithm 1 on the federated image task.
+                     D2D mixing always goes through the ``consensus_mix``
+                     wrapper: on the CUDA device it launches the kernel,
+                     and on the CPU it runs the kernel's plain version.
 * ``--mode scale`` — TT-HF as the sync strategy for a dense or ssm
                      model-zoo arch (``--arch``) through ``ScaleTrainer``,
                      on one device, with the reference's per-leaf
                      interval step.
+
+In both modes ``--scenario`` (netsim weather), ``--hierarchy`` (a fog
+preset) and ``--control`` (a control policy) declare the round program
+(:func:`build_program`), as in the reference; control with a hierarchy,
+and control of a star baseline or star/local sync, raise ``ValueError``
+as the reference's assertions do.
 
 Examples:
   python -m repro_torch.launch.train --mode sim --model nn --hidden 7840 \
@@ -20,6 +24,16 @@ Examples:
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
       --scenario stragglers --device cpu
+  python -m repro_torch.launch.train --mode sim --model svm \
+      --devices 24 --clusters 8 --points 800 --steps 20 --tau 5 \
+      --consensus-every 5 --hierarchy fog4 --scenario device_churn \
+      --device cpu
+  python -m repro_torch.launch.train --mode sim --model svm \
+      --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
+      --control connectivity --device cpu
+  python -m repro_torch.launch.train --mode scale --arch qwen1.5-0.5b \
+      --reduced --replicas 8 --tau 2 --consensus-every 2 --steps 4 \
+      --hierarchy fog3 --scenario device_churn --device cpu
   python -m repro_torch.launch.train --mode scale --arch qwen1.5-0.5b \
       --steps 2                                   # full size, on the card
   python -m repro_torch.launch.train --mode scale --arch mamba2-370m \
@@ -27,8 +41,7 @@ Examples:
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
 ``--arch`` of a kind other than dense or ssm (Queue 1 item 6b);
-``--scenario`` in scale mode, ``--hierarchy`` and ``--control`` other
-than static (item 4); ``--trace-dir`` and ``--profile`` (item 5).
+``--trace-dir`` and ``--profile`` (item 5).
 """
 from __future__ import annotations
 
@@ -40,19 +53,27 @@ import time
 import numpy as np
 
 
-def _refuse_unported(args) -> None:
-    if args.scenario and args.mode == "scale":
-        raise NotImplementedError(
-            "--scenario runs in --mode sim; netsim dynamics in scale mode "
-            "are not ported yet (ROADMAP.md Queue 1 item 4)")
+def build_program(args, tau: int):
+    """The declarative round program: optional netsim dynamics, an
+    optional fog hierarchy and an optional control policy, which both
+    trainers resolve."""
+    from repro_torch.rounds import RoundProgram
+
+    dynamics = hierarchy = control = None
+    if args.scenario:
+        from repro_torch.netsim import scenarios
+        dynamics = scenarios.get(args.scenario, seed=args.seed)
     if args.hierarchy:
-        raise NotImplementedError(
-            "--hierarchy (the fog hierarchy) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
-    if args.control != "static":
-        raise NotImplementedError(
-            "--control (the control plane) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
+        from repro_torch.hierarchy import presets
+        hierarchy = presets.get(args.hierarchy, tau=tau)
+    if getattr(args, "control", None) and args.control != "static":
+        from repro_torch.control import get_policy
+        control = get_policy(args.control)
+    return RoundProgram(dynamics=dynamics, hierarchy=hierarchy,
+                        control=control)
+
+
+def _refuse_unported(args) -> None:
     if args.trace_dir or args.profile:
         raise NotImplementedError(
             "--trace-dir/--profile are not ported yet "
@@ -64,7 +85,6 @@ def run_sim(args):
     from repro_torch.core import TTHFTrainer, make_baseline_config
     from repro_torch.data import fashion_synth, partition_noniid_labels
     from repro_torch.models import make_sim_model
-    from repro_torch.netsim import scenarios
 
     _refuse_unported(args)
     x, y = fashion_synth(num_points=args.points, seed=args.seed)
@@ -82,10 +102,9 @@ def run_sim(args):
         algo = TTHFConfig(tau=args.tau, consensus_every=args.consensus_every,
                           gamma_d2d=args.gamma, constant_lr=args.lr,
                           phi=args.phi)
-    dynamics = (scenarios.get(args.scenario, seed=args.seed)
-                if args.scenario else None)
     tr = TTHFTrainer(model, data, topo, algo, batch_size=args.batch,
-                     use_kernel=True, dynamics=dynamics, device=args.device)
+                     use_kernel=True, program=build_program(args, algo.tau),
+                     device=args.device)
     t0 = time.time()
     st, hist = tr.run(steps=args.steps, seed=args.seed,
                       eval_every=args.eval_every)
@@ -126,7 +145,8 @@ def run_scale(args):
         cfg, scale,
         TrainerConfig(batch_per_replica=args.batch, seq_len=args.seq,
                       intervals=args.steps, eval_every=0, seed=args.seed),
-        sync=args.sync, device=args.device)
+        sync=args.sync, program=build_program(args, args.tau),
+        device=args.device)
     t0 = time.time()
     try:
         tr.init().run()

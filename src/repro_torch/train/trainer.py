@@ -4,22 +4,28 @@ communication ledger around :func:`repro_torch.core.distributed.
 make_tthf_train_step`.
 
 Handles: data sharding per replica, interval batching (tau x R x b x
-T), periodic held-out eval of the *global* (sampled) model, and the
-ledger. Every interval runs through ONE ``_interval``: the
+T), periodic held-out eval of the *global* model, and the ledger. Every
+scenario (static, netsim dynamics, fog hierarchy, the control plane and
+their compositions) runs through ONE ``_interval``: the
 :class:`~repro_torch.rounds.resolver.RoundResolver` supplies the step's
-picks and the interval's :class:`~repro_torch.rounds.program.Billing`.
+aggregation argument (picks, the (N, s) weights or the composed (R, R)
+device matrix, whichever form the step was built for), the optional
+refresh of the mixing matrices (the controller's Γ folds into it) and
+the interval's :class:`~repro_torch.rounds.program.Billing`, which bills
+the realized Γ. Under a fog hierarchy the served global model is the
+root's snapshot, taken when the root fires.
 
-The reference splits a JAX key per interval and draws the picks from
-it. The port takes them from a *draw source* instead (``picks(N, s, k)``,
-one call per interval; default :class:`~repro_torch.core.sampling.
-TorchDraws`), so a test can feed it the reference's draws. The token
-streams are numpy and equal the reference's.
+The reference splits a JAX key per interval and draws the picks (or the
+seed of a host generator) from it. The port takes them from a *draw
+source* instead (``picks(N, s, k)`` or ``host_seed()``, one call per
+interval; default :class:`~repro_torch.core.sampling.TorchDraws`), so a
+test can feed it the reference's draws. The token streams are numpy and
+equal the reference's.
 
 Not ported yet, and refused: checkpoints (``ckpt_every > 0``) and the
 observability sink (``trace_dir``, ``profile``) — ROADMAP.md Queue 1
-item 5; netsim dynamics and fog hierarchies — item 4. The reference's
-``donate`` knob has no counterpart: the port's step updates the
-parameters in place instead.
+item 5. The reference's ``donate`` knob has no counterpart: the port's
+step updates the parameters in place instead.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.configs.base import (
 from repro_torch.core.distributed import (
     TTHFScaleConfig, make_tthf_train_step, stack_replicas)
 from repro_torch.core.energy import CommLedger
+from repro_torch.core.mixing import build_mixing_plan, canonical_backend
 from repro_torch.core.sampling import TorchDraws
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
@@ -99,19 +106,43 @@ class ScaleTrainer:
         self.tcfg = tcfg
         self.sync = sync
         self.program = program
+        if program.is_hierarchical and sync != "tthf":
+            raise ValueError("hierarchy implies tthf sync")
+        if program.is_adaptive:
+            if sync != "tthf":
+                raise ValueError(
+                    "the control plane retunes D2D consensus — star/local "
+                    "sync has no Γ to control")
+            if canonical_backend(scale.consensus_mode) != "fused_power":
+                raise ValueError(
+                    "per-interval Γ retuning folds into refreshed W = V^Γ "
+                    "— only the fused_power backend consumes it")
         self.device = resolve_device(device)
         self.model: ModelApi = build_model(cfg)
         self.dtype = _DTYPES[tcfg.dtype]
+        # only a tthf step carries consensus matrices to refresh: netsim
+        # dynamics and the controller's Γ arrive as each interval's
+        # refreshed matrices
+        refreshable = ((program.is_dynamic or program.is_adaptive)
+                       and sync == "tthf")
         step, self.net = make_tthf_train_step(
             self.model, scale, dtype=self.dtype, sync=sync,
-            hierarchy=program.hierarchy,
-            refreshable=program.is_dynamic or program.is_adaptive,
+            hierarchy=program.hierarchy, refreshable=refreshable,
             fused_interval=tcfg.fused_interval, device=self.device)
         # fused-interval runs carry self.params as the step's flat (R, P)
         # buffer; the spec unflattens (as views) at eval boundaries
         self._spec = getattr(step, "spec", None)
         self._step = step
-        self._resolver = RoundResolver.for_scale(self.net, scale, program)
+        self._plan = None
+        if refreshable:
+            self._plan = build_mixing_plan(
+                self.net, scale.gamma_d2d, backend=scale.consensus_mode,
+                device=self.device)
+        self._resolver = RoundResolver.for_scale(self.net, scale, program,
+                                                 plan=self._plan)
+        self.hierarchy = self._resolver.hierarchy
+        self.tree = self._resolver.tree
+        self.tvnet = self._resolver.tvnet
         self.ledger = CommLedger()
         self.metrics = MetricLogger(tcfg.log_path)
         self._make_gens()
@@ -119,6 +150,10 @@ class ScaleTrainer:
         self._eval_draws = 0
         self.params = None
         self.draws: Any = None
+        # hierarchical runs: the SERVED global model, taken only when the
+        # root fires (between root events replicas under different fog
+        # nodes disagree)
+        self._global: Optional[dict] = None
         self.interval = 0
 
     def _make_gens(self):
@@ -150,6 +185,8 @@ class ScaleTrainer:
         else:
             self.params = stack_replicas(w0, R)
         self.draws = draws if draws is not None else TorchDraws(gen)
+        if self.tree is not None:
+            self._global = tree_map(lambda v: v.clone(), w0)
         return self
 
     def _build_interval_batch(self):
@@ -169,12 +206,20 @@ class ScaleTrainer:
         self._train_draws += self.scale.tau
         return batch
 
-    def _global_params(self) -> dict:
-        """The served global model: replica 0's copy, identical to all
-        others right after the interval's aggregation."""
+    def _replica0(self) -> dict:
+        """Replica 0's parameter tree (views, either carrier)."""
         if self._spec is not None:
             return self._spec.unflatten_one(self.params[0])
         return tree_map(lambda l: l[0], self.params)
+
+    def _global_params(self) -> dict:
+        """The served global model. Flat runs: replica 0's copy, identical
+        to all others right after the interval's aggregation.
+        Hierarchical runs: the root's snapshot (the initial broadcast
+        until the root first fires)."""
+        if self.tree is not None:
+            return self._global
+        return self._replica0()
 
     def evaluate(self) -> float:
         g = self._global_params()
@@ -188,11 +233,15 @@ class ScaleTrainer:
         return float(np.mean(losses))
 
     def _interval(self, batch):
-        """ONE interval: the resolver's picks into the step, then the
-        interval's bill."""
+        """ONE interval for every scenario: the resolver's aggregation
+        argument and refresh into the step, the root's snapshot when a
+        live root event broadcast it, then the interval's bill."""
         ev = self._resolver.resolve_interval(self.interval, self.draws)
         self.params, loss = self._step(self.params, batch, ev.agg,
-                                       self.interval)
+                                       self.interval, ev.refresh)
+        if ev.root_served:
+            # a copy: the step updates the replicas in place
+            self._global = tree_map(lambda l: l.clone(), self._replica0())
         ev.billing.charge(self.ledger)
         return loss
 

@@ -176,12 +176,18 @@ def test_static_resolver_calendar_exact(algo_kw, eval_every):
                                            sample=(1, 0))),
 ])
 def test_resolver_refuses_unported_programs(prog):
-    # netsim dynamics resolve in simulation mode now; the control plane
-    # and the fog hierarchy are still to port
+    # every program resolves now; what the resolver refuses is what the
+    # reference asserts against: here a calendar that does not fit (a
+    # star baseline has no Γ to control; a tier-1 period other than τ)
     net = topology.build_network(TopologyConfig(num_devices=12,
                                                 num_clusters=3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        RoundResolver.for_sim(net, TTHFConfig(tau=5), prog)
+    res = RoundResolver.for_sim(net, TTHFConfig(tau=5), prog)
+    assert (res.controller is not None) == prog.is_adaptive
+    assert (res.tree is not None) == prog.is_hierarchical
+    bad = (TTHFConfig(mode="fedavg", tau=5, full_participation=True)
+           if prog.is_adaptive else TTHFConfig(tau=10))
+    with pytest.raises(ValueError):
+        RoundResolver.for_sim(net, bad, prog)
     # the static declarations of the same knobs resolve as the paper's
     res = RoundResolver.for_sim(net, TTHFConfig(tau=5), RoundProgram(
         dynamics=DynamicsConfig(), hierarchy=HierarchyConfig(),

@@ -71,7 +71,12 @@ for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.launch.serve", "repro_torch.core.theory",
             "repro_torch.netsim", "repro_torch.netsim.dynamics",
             "repro_torch.netsim.events", "repro_torch.netsim.faults",
-            "repro_torch.netsim.scenarios"):
+            "repro_torch.netsim.scenarios", "repro_torch.hierarchy",
+            "repro_torch.hierarchy.tree", "repro_torch.hierarchy.presets",
+            "repro_torch.hierarchy.aggregate", "repro_torch.control",
+            "repro_torch.control.laws", "repro_torch.control.estimator",
+            "repro_torch.control.policies",
+            "repro_torch.control.controller"):
     assert new in names, new
 from repro_torch.netsim import scenarios
 tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
@@ -81,6 +86,21 @@ tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
                  device="cpu")
 _, hist = tr.run(steps=4, eval_every=2)
 assert len(hist.active_devices) == 2
+from repro_torch.control import get_policy
+from repro_torch.hierarchy import presets
+from repro_torch.rounds import RoundProgram
+for prog in (RoundProgram(hierarchy=presets.get("fog3", tau=2),
+                          dynamics=scenarios.get("device_churn")),
+             RoundProgram(control=get_policy("connectivity"))):
+    x8, y8 = fashion_synth(num_points=400, seed=0)
+    tr = TTHFTrainer(make_sim_model("svm", 784, 10),
+                     partition_noniid_labels(x8, y8, num_devices=8),
+                     TopologyConfig(num_devices=8, num_clusters=4,
+                                    graph="ring"),
+                     TTHFConfig(tau=2, consensus_every=1), batch_size=4,
+                     use_kernel=True, program=prog, device="cpu")
+    _, hist = tr.run(steps=4, eval_every=2)
+    assert len(hist.global_loss) == 2 and tr.ledger.uplinks > 0
 import runpy
 for twin, argv in (
         ("torch_quickstart", ["--steps", "2", "--devices", "10",
@@ -102,6 +122,15 @@ st = ScaleTrainer(get_arch("qwen1.5-0.5b").reduced(d_model=64, vocab_size=64),
                                 eval_every=0, fused_interval=True),
                   device="cpu").run()
 assert st.interval == 1 and st.ledger.uplinks == 2
+st = ScaleTrainer(get_arch("qwen1.5-0.5b").reduced(d_model=64, vocab_size=64),
+                  TTHFScaleConfig(replicas=4, cluster_size=2, tau=2,
+                                  consensus_every=1),
+                  TrainerConfig(batch_per_replica=1, seq_len=8, intervals=2,
+                                eval_every=0, fused_interval=True),
+                  program=RoundProgram(hierarchy=presets.get("fog3", tau=2),
+                                       dynamics=scenarios.get("device_churn")),
+                  device="cpu").run()
+assert st.interval == 2 and st.ledger.uplinks_by_level[2] > 0
 import torch
 from repro_torch.models import build_model
 from repro_torch.serving import PagedContinuousScheduler, Request

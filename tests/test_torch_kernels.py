@@ -22,7 +22,9 @@ import torch
 
 from repro_torch.core.topology import geometric_adjacency, metropolis_weights
 from repro_torch.kernels import build
-from repro_torch.core.mixing import masked_consensus_matrix, matrix_powers
+from repro_torch.core.mixing import (
+    build_mixing_plan, masked_consensus_matrix, matrix_powers,
+    refresh_matrices)
 from repro_torch.kernels.consensus_mix import (
     MAX_CLUSTER_SIZE, consensus_mix, consensus_mix_plain)
 from repro_torch.kernels.fused_consensus_sgd import (
@@ -587,6 +589,36 @@ def test_fused_consensus_sgd_kernel_on_card(cuda_device, dtype, wd):
             fused_consensus_sgd_plain(w, g, W, 0.01, weight_decay=wd)
             .float().cpu().numpy(),
             atol=SGD_TOL[dtype], rtol=SGD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fused_consensus_sgd_kernel_with_a_refreshed_W_on_card(cuda_device):
+    """The scale path's refreshed W (netsim, the controller): the powers
+    of a masked V with a Γ that differs per cluster (0 included, so one
+    block is the identity), from ``refresh_matrices``; a dark device's
+    row of W is e_i, so its column takes only its own SGD update."""
+    N, s, M = 4, 2, 100_003
+    w, g, _ = _fcs_inputs(N, s, M, torch.float32, cuda_device, seed=21)
+    _, V, _ = _inputs(N, s, 1, torch.float32, "cpu", seed=21)
+    up = np.ones((N, s), bool)
+    up[3, 0] = False
+    plan = build_mixing_plan(V.numpy(), 2, device=cuda_device)
+    W = refresh_matrices(plan, V.numpy(), device_mask=up,
+                         gamma=np.array([3, 0, 1, 2], np.int32))
+    assert W.device.type == "cuda"
+    assert torch.equal(W[1], torch.eye(s, device=cuda_device))
+    before = fused_consensus_sgd.launches
+    out = fused_consensus_sgd(w, g, W, 0.01)
+    torch.cuda.synchronize()
+    assert fused_consensus_sgd.launches == before + 1
+    plain = fused_consensus_sgd_plain(w, g, W, 0.01)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               atol=SGD_TOL[torch.float32],
+                               rtol=SGD_TOL[torch.float32])
+    for c, i in ((1, 0), (1, 1), (3, 0)):
+        np.testing.assert_allclose(out[c, i].cpu().numpy(),
+                                   (w[c, i] - 0.01 * g[c, i]).cpu().numpy(),
+                                   atol=SGD_TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -338,18 +338,22 @@ def test_resolver_takes_a_host_seed_only_where_it_samples():
 
 
 def test_still_unported_forms_refuse():
+    # the fog hierarchy in sim mode and netsim in scale mode resolve now;
+    # they refuse only the calendars the reference asserts against
     net = build_network(TopologyConfig(**TOPO))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TTHFTrainer(make_sim_model("svm", 784, 10), _data(),
-                    TopologyConfig(**TOPO), TTHFConfig(**ALGOS["tthf"]),
-                    hierarchy=HierarchyConfig(levels=3, taus=(10, 20),
-                                              sample=(1, 1)),
-                    device="cpu")
+    args = (make_sim_model("svm", 784, 10), _data(), TopologyConfig(**TOPO))
+    hier = HierarchyConfig(levels=3, taus=(10, 20), sample=(1, 1))
+    tr = TTHFTrainer(*args, TTHFConfig(**ALGOS["tthf"]), hierarchy=hier,
+                     device="cpu")
+    assert tr.tree is not None and tr.tree.node_counts == (4, 2, 1)
+    with pytest.raises(ValueError, match="tier-1 period"):
+        TTHFTrainer(*args, TTHFConfig(**dict(ALGOS["tthf"], tau=20)),
+                    hierarchy=hier, device="cpu")
     from repro_torch.core.distributed import TTHFScaleConfig
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        RoundResolver.for_scale(
-            net, TTHFScaleConfig(replicas=20, cluster_size=5),
-            RoundProgram(dynamics=scenarios.get("markov_links")))
+    res = RoundResolver.for_scale(
+        net, TTHFScaleConfig(replicas=20, cluster_size=5),
+        RoundProgram(dynamics=scenarios.get("markov_links")))
+    assert res.tvnet is not None
 
 
 def test_train_cli_scenario_in_sim_mode(capsys):
@@ -365,7 +369,13 @@ def test_train_cli_scenario_in_sim_mode(capsys):
     assert train_cli.main(argv + ["--scenario", "stragglers"]) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert "final_loss=" in line and "uplinks=8 L1=8" in line
-    for bad in (["--scenario", "device_churn", "--mode", "scale"],
-                ["--hierarchy", "fog3"], ["--control", "remark1"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            train_cli.main(argv + bad)
+    # the fog hierarchy and the control plane run beside the scenario
+    # (the scale CLI's forms: tests/test_torch_scale_forms.py)
+    for more in (["--hierarchy", "fog3"], ["--control", "remark1"]):
+        assert train_cli.main(argv + ["--scenario", "stragglers"]
+                              + more) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert "final_loss=" in line and "uplinks=" in line
+    with pytest.raises(ValueError, match="not composed yet"):
+        train_cli.main(argv + ["--hierarchy", "fog3", "--control",
+                               "remark1"])

@@ -100,9 +100,10 @@ class JaxScaleDraws:
         self.key = jax.random.PRNGKey(seed)
 
     def picks(self, num_clusters, cluster_size, k):
-        assert k == 1
         self.key, kp = jax.random.split(self.key)
         return torch.from_numpy(np.array(
+            j_smp.sample_devices_multi(kp, num_clusters, cluster_size, k)
+            if k > 1 else
             j_smp.sample_devices(kp, num_clusters, cluster_size))).long()
 
 
@@ -302,18 +303,21 @@ def test_fused_interval_kernel_path_matches_reference_kernel_path():
 
 
 def test_unported_aggregation_forms_raise():
+    # the weights and matrix forms are ported (tests/test_torch_scale_
+    # forms.py); the step raises what the reference asserts against
     m = build_model(_CFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    h = HierarchyConfig(levels=3, taus=(_TAU, 2 * _TAU), sample=(1, 0))
+    with pytest.raises(ValueError, match="fan-in"):
         dist.make_tthf_train_step(
             m, _scale(dist.TTHFScaleConfig, sample_per_cluster=2),
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dist.make_tthf_train_step(m, _scale(dist.TTHFScaleConfig),
-                                  refreshable=True, device="cpu")
-    h = HierarchyConfig(levels=3, taus=(_TAU, 2 * _TAU), sample=(1, 0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dist.make_tthf_train_step(m, _scale(dist.TTHFScaleConfig),
+            hierarchy=h, device="cpu")
+    with pytest.raises(ValueError, match="tier-1 period"):
+        dist.make_tthf_train_step(m, _scale(dist.TTHFScaleConfig, tau=2,
+                                            consensus_every=2),
                                   hierarchy=h, device="cpu")
+    with pytest.raises(ValueError, match="implies tthf"):
+        dist.make_tthf_train_step(m, _scale(dist.TTHFScaleConfig),
+                                  hierarchy=h, sync="star", device="cpu")
     with pytest.raises(ValueError, match="divide"):
         dist.make_tthf_train_step(
             m, _scale(dist.TTHFScaleConfig, consensus_every=3), device="cpu")
@@ -386,10 +390,11 @@ def test_resolver_bills_the_static_interval():
     assert b.local_devices == _R * _TAU and b.consensus_repeats == 2
     assert b.uplinks_by_level == {1: 2}
     assert b.consensus_gammas.tolist() == [2, 2]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        RoundResolver.for_scale(
-            net, _scale(dist.TTHFScaleConfig, sample_per_cluster=2),
-            RoundProgram())
+    # two picks per cluster: the (N, s) weights form, N * k uplinks
+    ev = RoundResolver.for_scale(
+        net, _scale(dist.TTHFScaleConfig, sample_per_cluster=2),
+        RoundProgram()).resolve_interval(0, JaxScaleDraws(0))
+    assert ev.agg.shape == (2, 2) and ev.billing.uplinks_by_level == {1: 4}
 
 
 def _trainers(fused_interval, arch="qwen", **kw):

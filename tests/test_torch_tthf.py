@@ -149,8 +149,9 @@ def test_entry_points_refuse_quietly_running_elsewhere(monkeypatch):
     cfg, data, topo = _setup("kernels_svm")
     args = (make_sim_model("svm", 784, 10), data, TopologyConfig(**topo),
             TTHFConfig())
-    # netsim dynamics run in sim mode; the fog hierarchy is still to port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # the fog hierarchy runs in sim mode; a calendar the reference
+    # rejects raises
+    with pytest.raises(ValueError, match="tier-1 period"):
         TTHFTrainer(*args, device="cpu", program=RoundProgram(
             hierarchy=HierarchyConfig(levels=3, taus=(5, 10),
                                       sample=(1, 0))))
@@ -161,13 +162,19 @@ def test_entry_points_refuse_quietly_running_elsewhere(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
         train_cli.main(["--mode", "scale", "--arch", "recurrentgemma-9b",
                         "--reduced", "--device", "cpu"])
-    # --scenario runs in sim mode; in scale mode it, and --control in
-    # either mode, are still to port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        train_cli.main(["--mode", "scale", "--scenario", "device_churn",
+    # --scenario, --hierarchy and --control run in both modes; the CLI
+    # refuses only what the reference rejects: control with a hierarchy,
+    # and control of a star baseline or of star sync
+    with pytest.raises(ValueError, match="not composed yet"):
+        train_cli.main(["--mode", "scale", "--hierarchy", "fog3",
+                        "--control", "connectivity", "--reduced",
                         "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        train_cli.main(["--control", "connectivity", "--device", "cpu"])
+    with pytest.raises(ValueError, match="star baselines"):
+        train_cli.main(["--control", "connectivity", "--baseline",
+                        "fedavg", "--device", "cpu"])
+    with pytest.raises(ValueError, match="star/local"):
+        train_cli.main(["--mode", "scale", "--control", "connectivity",
+                        "--sync", "star", "--reduced", "--device", "cpu"])
 
 
 def test_train_cli_summary_line(capsys):
