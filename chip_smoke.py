@@ -15,7 +15,9 @@ under the control plane, and on the full-size mamba2-370m (48 Mamba-2
 layers, d 1024, 32 SSD heads of 64, state 128), paged
 continuous-batching serving of qwen1.5-0.5b, and continuous-batching
 serving of mamba2-370m — and holds every kernel of those paths against
-its plain PyTorch version.
+its plain PyTorch version; then the sim, scale and serve paths again with
+the observability sink and a full-width checkpoint, held to their bare
+runs.
 Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
 
@@ -159,6 +161,24 @@ caught):
              plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
              over 48 layers); and a reduced mamba2's serve trace on the
              card against the same trace on the CPU (the same tokens).
+8. obs     — the observability sink and checkpoints, each run held to
+             its bare run (bitwise where two bare runs on the card are
+             bitwise equal, which the phase checks and prints first;
+             else the [slice] and [scale] tolerances): phase 3's NN
+             with a trace dir (32 ``consensus_mix`` launches; one
+             ``round`` record per boundary with the reference's fields,
+             the gauges equal to ``core/theory.py``, ``trace.json``
+             valid) and with ``profile=True`` (the profiler's trace in
+             ``torch_profile/`` holds the 32 ``consensus_mix`` kernel
+             events); phase 4's fused qwen run with a trace dir (8
+             ``fused_consensus_sgd`` launches, a finite ``grad_norm``),
+             checkpointed after interval 1 (7.4 GB, the free disk
+             checked first; deleted after) and resumed in a fresh
+             trainer for interval 2; phase 5's trace through the serve
+             CLI with ``--trace-dir`` (the same tokens and stats, one
+             ``request`` record per request). It prints each run's
+             rate beside its bare run's, the divergence probe's ms a
+             round and the checkpoint's size and seconds.
 
 It prints the card's name and power limit first, one JSON line with the
 kernels' numbers before the last line, and as the last line
@@ -170,9 +190,9 @@ rest of the repository beside it, it exits non-zero and prints no result.
 under ``device_churn``), one profiled interval of each scale path and one
 profiled trace of each serve path, and prints the device time by kernel
 and the device's idle share. ``--phases slice-fog,slice-control,
-scale-forms`` (any of those and ``kernels``) builds the kernels and runs
-only those phases (the sim ones after phase 3's run), and prints no
-result line.
+scale-forms,obs`` (any of those and ``kernels``) builds the kernels and
+runs only those phases (the sim ones and ``obs`` after phase 3's run,
+``obs`` also after phases 4 and 5), and prints no result line.
 """
 from __future__ import annotations
 
@@ -665,6 +685,16 @@ class NumpyDraws:
             self.probe_rng = np.random.default_rng(seed)
         return torch.from_numpy(self.probe_rng.integers(
             0, points, size=(num_devices, draws, batch)))
+
+    def state_dict(self):
+        """The generator's state as the bytes of its JSON (a checkpoint
+        holds arrays; PCG64's state has 128-bit integers)."""
+        blob = json.dumps(self.rng.bit_generator.state).encode()
+        return {"rng": np.frombuffer(blob, dtype=np.uint8)}
+
+    def load_state_dict(self, state):
+        self.rng.bit_generator.state = json.loads(
+            np.asarray(state["rng"], np.uint8).tobytes().decode())
 
 
 def sim_setup():
@@ -1348,11 +1378,13 @@ def scale_run(c, sc, fused: bool, intervals: int, name: str, *,
         led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
 
 
-def phase_scale(profile: bool = False) -> dict:
+def phase_scale(profile: bool = False) -> tuple:
     """ScaleTrainer on the full-size qwen1.5-0.5b: the fused interval
     (the main path, through fused_consensus_sgd), the per-leaf step held
     to it, and a reduced run on the card held to the CPU. Returns each
-    kernel's launches in the main path's run."""
+    kernel's launches in the main path's run, and that run's losses,
+    global model (on the host), ledger and wall with the warm-up's
+    losses and global model (the bare runs ``[obs]`` is held to)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.distributed import TTHFScaleConfig
@@ -1377,6 +1409,8 @@ def phase_scale(profile: bool = False) -> dict:
     tr, losses, wall, _ = run(True, 1, "warmup")
     log(f"[scale] warm-up qwen1.5-0.5b fused interval: 1 interval in "
         f"{wall:.3f} s, loss {losses}")
+    # kept on the host for [obs]: a bare 1-interval run to hold another to
+    warm = {"losses": losses, "row0": tr.params[0].cpu()}
     del tr
     torch.cuda.empty_cache()
 
@@ -1399,6 +1433,8 @@ def phase_scale(profile: bool = False) -> dict:
     # the global model, replica 0's row of the flat (R, P) buffer
     g_fused = tr.params[0].clone()
     spec = tr._spec
+    bare = {"losses": losses, "row0": g_fused.cpu(), "ledger": ledger,
+            "wall": wall, "warm": warm}
     log(f"[scale] qwen1.5-0.5b fused interval: 2 intervals in {wall:.3f} s "
         f"= {2 / wall:.4f} intervals/s, {2 * tokens_per_interval / wall:.1f} "
         f"tokens/s, loss {losses}, ledger {ledger}, fused_consensus_sgd "
@@ -1452,7 +1488,7 @@ def phase_scale(profile: bool = False) -> dict:
     assert led_gpu == led_cpu
     log(f"[scale] reduced qwen on cuda vs cpu: loss {l_gpu} vs {l_cpu} "
         f"(rtol 1e-4), same ledger {led_gpu}")
-    return launches
+    return launches, bare
 
 
 def phase_scale_ssm(profile: bool = False) -> int:
@@ -1949,13 +1985,14 @@ def trace_stats(stats, sched=None) -> dict:
     return out
 
 
-def phase_serve(profile: bool = False) -> int:
+def phase_serve(profile: bool = False) -> tuple:
     """Paged continuous-batching serving of the full-size qwen1.5-0.5b
     through the serve CLI's trace: the main path (the paged_decode
     kernel), the plain gather, a one-shot paged prefill and the ring
     scheduler held to it, teacher-forced logits, and a reduced trace on
     the card against the CPU. Returns paged_decode's launches in the
-    main path's run."""
+    main path's run, and that run's tokens, stats and wall (the bare run
+    ``[obs]`` is held to)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels.paged_decode import paged_decode
@@ -2018,6 +2055,7 @@ def phase_serve(profile: bool = False) -> int:
         f"= {cfg.num_layers} x {stats.decode_steps}, pool {pool_bytes} B, "
         f"max_memory_allocated {peak} B, no page leaked")
     kernel_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    bare = {"tokens": kernel_tokens, "stats": main, "wall": wall}
     del sched
     torch.cuda.empty_cache()
     if profile:
@@ -2120,7 +2158,7 @@ def phase_serve(profile: bool = False) -> int:
     log(f"[serve] reduced qwen paged trace on cuda vs cpu: the same tokens "
         f"for all {trace['requests']} requests and the same stats "
         f"({outs['cpu'][1]['decode_steps']} decode steps)")
-    return launches
+    return launches, bare
 
 
 def record_margins(cls) -> tuple:
@@ -2355,6 +2393,362 @@ def phase_forward_ssm() -> None:
         f"steps)")
 
 
+# the instrumented paths: the reference's record fields (held to the
+# reference on the CPU by tests/test_torch_obs.py)
+OBS_ROUND_FIELDS = {
+    "sim": {"step", "wall_s", "kind", "active_devices", "eta", "upsilon",
+            "consensus_err", "mix_residual", "dispersion", "param_norm",
+            "sigma_t", "dispersion_bound", "eps0", "gamma_used",
+            "upsilon_pre", "lemma1_bound", "gamma_saturated",
+            "gamma_saturated_total"},
+    "scale": {"step", "wall_s", "kind", "train_loss", "upsilon",
+              "consensus_err", "mix_residual", "dispersion", "param_norm",
+              "sigma_t", "dispersion_bound", "eps0", "gamma_used",
+              "lemma1_bound"}}
+REQUEST_FIELDS = {"step", "wall_s", "kind", "rid", "submit", "admit",
+                  "first_token", "queue_latency", "ttft", "decode", "budget",
+                  "prefill_chunks", "prefix_pages_reused"}
+# the serve path's flags (launch/serve.py), the trace of SERVE_TRACE
+SERVE_ARGV = ["--scheduler", "paged", "--batch", "8", "--prompt-len", "512",
+              "--gen", "128", "--requests", "32", "--prefill-chunk", "256",
+              "--prefix-template", "128", "--temperature", "0"]
+
+
+def obs_dir(name: str) -> Path:
+    """A fresh trace dir under chiprun_out/."""
+    import shutil
+    d = ROOT / "chiprun_out" / f"obs_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def obs_records(d: Path, kind: str) -> list:
+    return [r for r in (json.loads(line) for line in
+                        (d / "metrics.jsonl").read_text().splitlines())
+            if r["kind"] == kind]
+
+
+def obs_trace(d: Path) -> dict:
+    """trace.json, validated; its span and counter names counted."""
+    from repro_torch.obs import validate_chrome_trace
+    doc = json.loads((d / "trace.json").read_text())
+    problems = validate_chrome_trace(doc)
+    assert not problems, problems[:5]
+    names: dict = {}
+    for e in doc["traceEvents"]:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def probe_ms(probe, params, iters: int = 5) -> float:
+    """The divergence probe's time a call (CUDA events, drained)."""
+    import torch
+    probe(params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        out = probe(params)
+    end.record()
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    return start.elapsed_time(end) / iters
+
+
+def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
+    """The observability sink and checkpoints on three main paths, each
+    held to its bare run: the sim NN (paper size, Γ 2, 40 steps) with a
+    trace dir and then with the profiler; the full qwen1.5-0.5b scale
+    path (4 replicas, fused, 2 intervals) instrumented, checkpointed after
+    interval 1 and resumed in a fresh trainer; the serve CLI's paged trace
+    with a trace dir. Returns each kernel's launches on these runs."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import TTHFTrainer, theory
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs import make_obs, telemetry
+    from repro_torch.obs.trace import PROFILE_DIR, PROFILE_TRACE
+    from repro_torch.train import ScaleTrainer, TrainerConfig
+
+    launches = {}
+    # ---- sim: bare twice, then with a trace dir, then profiled --------
+    steps = 40
+    data, topo, nn, _ = sim_setup()
+
+    def sim(obs=None):
+        tr = TTHFTrainer(nn, data, topo, sim_algo(), batch_size=16,
+                         use_kernel=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        try:
+            st, hist = tr.run(steps=steps, seed=0, eval_every=10, obs=obs)
+        finally:
+            if obs is not None:
+                obs.close()
+        torch.cuda.synchronize()
+        return tr, st, hist, time.time() - t0
+
+    tr_a, st_a, hist_a, wall_a = sim()
+    sim_equals_plain("obs bare", hist_a, tr_a, slice_run)
+    _, st_b, hist_b, wall_b = sim()
+    bitwise = hist_b.global_loss == hist_a.global_loss and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(st_a.params),
+                                          tree_leaves(st_b.params)))
+    del st_b
+    log(f"[obs] sim: two bare runs on the card are "
+        f"{'bitwise equal' if bitwise else 'NOT bitwise equal'}; the "
+        f"instrumented runs are held "
+        f"{'bitwise' if bitwise else 'to the [slice] tolerances'}")
+
+    def hold_sim(tag, tr, st, hist):
+        if bitwise:
+            assert hist.global_loss == hist_a.global_loss, tag
+            for a, b in zip(tree_leaves(st_a.params),
+                            tree_leaves(st.params)):
+                assert torch.equal(a, b), tag
+        else:
+            np.testing.assert_allclose(hist.global_loss, hist_a.global_loss,
+                                       rtol=1e-4)
+        assert [g.tolist() for g in hist.gamma_used] == \
+            [g.tolist() for g in hist_a.gamma_used], tag
+        assert sim_ledger(tr) == sim_ledger(tr_a), tag
+
+    d = obs_dir("sim")
+    consensus_mix.launches = 0
+    tr, st, hist, wall = sim(make_obs(str(d), run_name="train-sim"))
+    launches["consensus_mix"] = consensus_mix.launches
+    assert launches["consensus_mix"] == 32, launches
+    hold_sim("obs sim", tr, st, hist)
+    rounds = obs_records(d, "round")
+    assert [r["step"] for r in rounds] == list(range(5, steps + 1, 5))
+    names = obs_trace(d)
+    assert names["round"] == len(rounds) and names["run"] == 1
+    assert names["consensus_event"] == len(rounds)
+    g = tr._obs_gauges
+    N = tr.net.num_clusters
+    t_prev = 0
+    for r in rounds:
+        assert set(r) == OBS_ROUND_FIELDS["sim"], set(r)
+        assert np.isfinite(r["upsilon"]).all() and len(r["upsilon"]) == N
+        # the gauges: Proposition 1 and Lemma 1 of core/theory.py
+        eta = tr.algo.constant_lr
+        k = g.constants
+        sig = telemetry.sigma_t_general(k.beta, lambda j: eta, r["step"],
+                                        t_prev)
+        assert r["sigma_t"] == sig and r["eps0"] == eta * tr.algo.phi
+        assert r["dispersion_bound"] == (12.0 / k.varrho_min) * sig ** 2 * (
+            k.sigma ** 2 / k.beta ** 2 + k.delta ** 2 / k.beta ** 2
+            + r["eps0"] ** 2)
+        assert r["lemma1_bound"] == [
+            theory.lemma1_bound(float(tr.net.lambdas[c]),
+                                int(r["gamma_used"][c]),
+                                tr.net.cluster_size, r["upsilon_pre"][c],
+                                tr.model_dim) for c in range(N)]
+        if r["step"] % tr.algo.tau == 0:
+            t_prev = r["step"]
+    evals = obs_records(d, "eval")
+    assert len(evals) == 4 and all(np.isfinite(e["grad_norm"])
+                                   for e in evals)
+    sim_probe_ms = probe_ms(tr._obs_probe, st.params)
+    del st
+    # the first bare run warms the allocator up after the serve phases:
+    # the rate is read in turns, bare, instrumented, bare
+    _, st_c, _, wall_c = sim()
+    del st_c
+    log(f"[obs] sim nn-7840 with a trace dir: {steps / wall:.3f} steps/s, "
+        f"bare {steps / wall_b:.3f} before and {steps / wall_c:.3f} after "
+        f"({100 * (wall / (0.5 * (wall_b + wall_c)) - 1):+.1f} % wall; "
+        f"the first bare run {steps / wall_a:.3f}), "
+        f"{len(rounds)} round records, {len(evals)} eval records (grad_norm "
+        f"{[round(e['grad_norm'], 6) for e in evals]}), trace.json valid "
+        f"with {sum(names.values())} events, gauges equal core/theory.py; "
+        f"divergence probe {sim_probe_ms:.3f} ms a round over the "
+        f"{tr.model_dim}-parameter fleet of {tr.data.num_devices}; "
+        f"consensus_mix launches "
+        f"{launches['consensus_mix']}")
+
+    d = obs_dir("sim_profile")
+    tr, st, hist, wall_p = sim(make_obs(str(d), profile=True,
+                                        run_name="train-sim"))
+    hold_sim("obs sim profile", tr, st, hist)
+    del st
+    prof = d / PROFILE_DIR / PROFILE_TRACE
+    size = prof.stat().st_size
+    doc = json.loads(prof.read_text())
+    kernels = [e for e in doc["traceEvents"]
+               if e.get("cat") == "kernel" and "consensus_mix" in
+               e.get("name", "")]
+    annotated = sum(e.get("name") == "consensus_event"
+                    for e in doc["traceEvents"])
+    assert len(kernels) == 32, len(kernels)
+    assert annotated >= 8, annotated
+    log(f"[obs] sim with --profile: {steps / wall_p:.3f} steps/s; "
+        f"{PROFILE_DIR}/{PROFILE_TRACE} {size} B with {len(kernels)} CUDA "
+        f"kernel events named {kernels[0]['name'][:60]!r} and "
+        f"{annotated} consensus_event annotations")
+    shutil.rmtree(d / PROFILE_DIR)
+    del doc, st_a, tr_a
+    torch.cuda.empty_cache()
+
+    # ---- scale: bare 1 interval, instrumented 2 with a checkpoint ------
+    cfg = get_arch("qwen1.5-0.5b")
+    scale = scale_cli_config()
+    tokens = scale.tau * scale.replicas * SCALE_BATCH * 128
+    w0 = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    def trainer(trace_dir=None):
+        tr = ScaleTrainer(cfg, scale, TrainerConfig(
+            batch_per_replica=SCALE_BATCH, seq_len=128, intervals=2,
+            eval_every=2 if trace_dir else 0, eval_batches=1, seed=0,
+            fused_interval=True, trace_dir=trace_dir), device="cuda")
+        return tr.init(w0=w0, draws=NumpyDraws(0))
+
+    def timed_run(tr, n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr.run(n)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    def losses(tr):
+        return list(tr.metrics._recent["train_loss"])
+
+    tr = trainer()
+    timed_run(tr, 1)
+    warm = scale_bare["warm"]
+    scale_bitwise = losses(tr) == warm["losses"] and torch.equal(
+        tr.params[0].cpu(), warm["row0"])
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[obs] scale: two bare 1-interval runs on the card are "
+        f"{'bitwise equal' if scale_bitwise else 'NOT bitwise equal'}; the "
+        f"instrumented and resumed runs are held "
+        f"{'bitwise' if scale_bitwise else 'to loss rtol 1e-4, atol 1e-5'}")
+
+    def hold_scale(tag, got_losses, row0, want_losses, want_row0):
+        if scale_bitwise:
+            assert got_losses == want_losses, (tag, got_losses, want_losses)
+            assert torch.equal(row0, want_row0), tag
+        else:
+            np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
+            diff = float((row0 - want_row0).abs().max())
+            assert diff <= 1e-5, (tag, diff)
+
+    d = obs_dir("scale")
+    ckpt_dir = ROOT / "build" / "obs_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    tr = trainer(str(d))
+    ckpt_bytes = tr.params[:, :tr._spec.total].numel() * 4
+    free = shutil.disk_usage(ckpt_dir).free
+    if free < 1.2 * ckpt_bytes:
+        raise SystemExit(f"[obs] {free} B free at {ckpt_dir}: too little "
+                         f"for the {ckpt_bytes} B checkpoint")
+    fused_consensus_sgd.launches = 0
+    wall1 = timed_run(tr, 1)
+    t0 = time.time()
+    path = Path(tr.save(str(ckpt_dir / "interval_1.npz")))
+    save_s = time.time() - t0
+    wall2 = timed_run(tr, 1)
+    tr.close()
+    launches["fused_consensus_sgd"] = fused_consensus_sgd.launches
+    assert launches["fused_consensus_sgd"] == 8, launches
+    assert bool((tr.params == tr.params[0]).all())   # broadcast: one model
+    hold_scale("obs scale", losses(tr), tr.params[0].cpu(),
+               scale_bare["losses"], scale_bare["row0"])
+    led = tr.ledger
+    assert (led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps) == \
+        scale_bare["ledger"]
+    rounds = obs_records(d, "round")
+    (ev,) = obs_records(d, "eval")
+    assert [r["step"] for r in rounds] == [1, 2]
+    assert all(set(r) == OBS_ROUND_FIELDS["scale"] for r in rounds)
+    assert np.isfinite(ev["grad_norm"]) and ev["grad_norm"] > 0
+    names = obs_trace(d)
+    assert names["interval"] == 2 and names["resolve"] == 2
+    scale_probe_ms = probe_ms(tr._obs_probe, tr._probe_params(), iters=3)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[obs] scale qwen1.5-0.5b fused with a trace dir: "
+        f"{2 * tokens / (wall1 + wall2):.1f} tokens/s over the 2 intervals "
+        f"(bare [scale] {2 * tokens / scale_bare['wall']:.1f}, "
+        f"{100 * ((wall1 + wall2) / scale_bare['wall'] - 1):+.1f} % wall; "
+        f"the second interval's wall includes the eval and the grad-norm "
+        f"probe), "
+        f"losses {scale_bare['losses']}, grad_norm {ev['grad_norm']:.6f}, "
+        f"divergence probe {scale_probe_ms:.3f} ms a round over the (4, "
+        f"{QWEN_P}) buffer; fused_consensus_sgd launches "
+        f"{launches['fused_consensus_sgd']}")
+
+    # the checkpoint into a fresh trainer, then interval 2
+    size = path.stat().st_size
+    tr = trainer()
+    t0 = time.time()
+    tr.restore(str(path))
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    assert tr.interval == 1 and tr._train_draws == scale.tau
+    assert not tr.params[:, tr._spec.total:].any()
+    timed_run(tr, 1)
+    hold_scale("obs resume", losses(tr), tr.params[0].cpu(),
+               scale_bare["losses"][1:], scale_bare["row0"])
+    led = tr.ledger
+    assert (led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps) == \
+        scale_bare["ledger"]
+    del tr, w0
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    log(f"[obs] checkpoint at full width: {size} B "
+        f"({ckpt_bytes} B of f32 parameters), saved in {save_s:.3f} s, "
+        f"restored into a fresh trainer in {restore_s:.3f} s; the resumed "
+        f"interval 2 equal to the straight run, same ledger; deleted")
+
+    # ---- serve: the CLI's paged trace, bare then with a trace dir --------
+    # (the serve path's rate spreads widely from run to run: the bare
+    # run just before is the one to read the instrumented run's against)
+    model = build_model(cfg)
+    _, _, arrivals, wall_b = serve_cli.run_scheduler_trace(
+        serve_cli.parse_args(SERVE_ARGV), cfg, model, torch.device("cuda"))
+    assert {r.rid: list(r.out_tokens) for _, r in arrivals} == \
+        serve_bare["tokens"]
+    d = obs_dir("serve")
+    args = serve_cli.parse_args(SERVE_ARGV + ["--trace-dir", str(d)])
+    paged_decode.launches = 0
+    sched, stats, arrivals, wall = serve_cli.run_scheduler_trace(
+        args, cfg, model, torch.device("cuda"))
+    launches["paged_decode"] = paged_decode.launches
+    assert launches["paged_decode"] == cfg.num_layers * stats.decode_steps
+    assert trace_stats(stats, sched) == serve_bare["stats"]
+    assert {r.rid: list(r.out_tokens) for _, r in arrivals} == \
+        serve_bare["tokens"]
+    reqs = obs_records(d, "request")
+    assert len(reqs) == SERVE_TRACE["requests"]
+    assert all(set(r) == REQUEST_FIELDS for r in reqs)
+    assert [(r["rid"], r["submit"], r["admit"], r["first_token"], r["step"],
+             r["decode"], r["budget"]) for r in reqs] == \
+        serve_bare["stats"]["records"]
+    names = obs_trace(d)
+    assert names["decode_step"] == stats.decode_steps
+    n_tok = stats.tokens_generated
+    del sched
+    torch.cuda.empty_cache()
+    log(f"[obs] serve qwen1.5-0.5b paged with a trace dir: {n_tok / wall:.1f}"
+        f" tokens/s (bare just before {n_tok / wall_b:.1f}, "
+        f"{100 * (wall / wall_b - 1):+.1f} % wall; bare [serve] "
+        f"{n_tok / serve_bare['wall']:.1f}), the "
+        f"bare run's tokens and trace stats, {len(reqs)} request records, "
+        f"trace.json valid with {sum(names.values())} events; paged_decode "
+        f"launches {launches['paged_decode']}")
+    return launches
+
+
 def profile_main_path(fn, label: str) -> None:
     """Device time by kernel and the device's busy share over one run
     of a main path (torch.profiler, CUDA activity only: recording every
@@ -2404,6 +2798,7 @@ PARTIAL_PHASES = {
     "slice-fog": phase_slice_fog,
     "slice-control": phase_slice_control,
     "scale-forms": phase_scale_forms,
+    "obs": phase_obs,
 }
 
 
@@ -2437,9 +2832,12 @@ def main() -> int:
         slice_run = None
         for name in only:
             args = ()
-            if name.startswith("slice-"):
+            if name.startswith("slice-") or name == "obs":
                 slice_run = slice_run or timed("slice", phase_slice)
                 args = (slice_run,)
+            if name == "obs":       # held to the bare scale and serve runs
+                args += (timed("scale", phase_scale)[1],
+                         timed("serve", phase_serve)[1])
             timed(name, PARTIAL_PHASES[name], *args)
         log(f"[partial] phases {only} passed; no result line")
         return 0
@@ -2456,18 +2854,23 @@ def main() -> int:
         "slice-fog": timed("slice-fog", phase_slice_fog, slice_run),
         "slice-control": timed("slice-control", phase_slice_control,
                                slice_run)}}
-    scale_launches = timed("scale", phase_scale, profile=profile)
+    scale_launches, scale_bare = timed("scale", phase_scale, profile=profile)
     by_path["fused_sgd"] = {"scale": scale_launches["fused_sgd"]}
     by_path["fused_consensus_sgd"] = {
         "scale": scale_launches["fused_consensus_sgd"],
         "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile),
         "scale-forms": timed("scale-forms", phase_scale_forms,
                              warm_up=False)}
-    by_path["paged_decode"] = {"serve": timed("serve", phase_serve,
-                                              profile=profile)}
+    serve_launches, serve_bare = timed("serve", phase_serve, profile=profile)
+    by_path["paged_decode"] = {"serve": serve_launches}
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
                                               profile=profile)}
     timed("forward-ssm", phase_forward_ssm)
+    # the instrumented paths (spans, metrics stream, probes, profiler,
+    # checkpoint), each held to its bare run above
+    for name, n in timed("obs", phase_obs, slice_run, scale_bare,
+                         serve_bare).items():
+        by_path[name]["obs"] = n
     replaces = {"consensus_mix": "src/repro/kernels/consensus_mix.py:44",
                 "fused_consensus_sgd":
                     "src/repro/kernels/fused_consensus_sgd.py:52",

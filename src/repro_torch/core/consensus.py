@@ -58,7 +58,8 @@ def consensus_error(z: torch.Tensor) -> torch.Tensor:
 def divergence_upsilon(z: torch.Tensor) -> torch.Tensor:
     """Definition 2: per-cluster max elementwise spread Upsilon_c.
     z: (N, s, M) -> (N,)."""
-    return (z.amax(dim=1) - z.amin(dim=1)).amax(dim=-1)
+    lo, hi = torch.aminmax(z, dim=1)
+    return (hi - lo).amax(dim=-1)
 
 
 def masked_divergence_upsilon(z: torch.Tensor,

@@ -20,12 +20,15 @@ per device from a stream of its own, seeded once with ``seed``, that
 never touches the training draws). Scale mode calls one of ``picks``
 and ``host_seed`` per interval. :class:`TorchDraws` is the default
 source; a test can hand the trainer any other object with those
-methods, such as one that replays the reference's key schedule.
+methods, such as one that replays the reference's key schedule. A
+source that is to be checkpointed also has ``state_dict()`` and
+``load_state_dict(state)``: its state as a tree of numpy arrays.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -84,6 +87,26 @@ class TorchDraws:
         return torch.randint(0, points, (num_devices, draws, batch),
                              generator=self._probe,
                              device=self._probe.device)
+
+    def state_dict(self) -> dict:
+        """The generators' states as uint8 arrays (a checkpoint's
+        ``extra["draws"]``): restored, the source draws on as if it had
+        never stopped."""
+        state = {"generator": self.generator.get_state().numpy()}
+        if self._probe is not None:
+            state["probe"] = self._probe.get_state().numpy()
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.set_state(_byte_state(state["generator"]))
+        self._probe = None
+        if "probe" in state:
+            self._probe = torch.Generator(device=self.generator.device)
+            self._probe.set_state(_byte_state(state["probe"]))
+
+
+def _byte_state(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.uint8, copy=True))
 
 
 def _take(z: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:

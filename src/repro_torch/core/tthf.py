@@ -30,6 +30,12 @@ event's fresh Υ, and the ``connectivity`` policy's gradient probe feeds
 its δ̂/σ̂ estimators at every aggregation, from minibatches of a stream
 of its own (``draws.probe_minibatch``).
 
+``run(obs=...)`` takes an observability sink (:mod:`repro_torch.obs`):
+spans of the two timescales, and per round the measured divergence
+beside the theory's bounds (the ``round`` record), the comms
+attribution (``comm``) and, at evaluations, ‖∇F(ŵ)‖ (``eval``). The
+probes only read the fleet, so an instrumented run equals a bare one.
+
 Baselines (Sec. IV-B) are the same engine with ``mode``:
   * ``tthf``        — Algorithm 1 (sampled aggregation + D2D consensus)
   * ``fedavg``      — star FL, full participation, no D2D (tau as given)
@@ -151,6 +157,10 @@ class TTHFTrainer:
                                        device=dev)
         self.model_dim = None    # set at init()
         self._gamma_saturated_total = 0
+        # observability (built at the first instrumented run)
+        self._obs_probe = None
+        self._obs_grad_probe = None
+        self._obs_gauges = None
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, w0: Optional[dict] = None,
@@ -369,6 +379,75 @@ class TTHFTrainer:
         return live
 
     # ------------------------------------------------------------------
+    # observability — read-only probes + theory gauges
+    # ------------------------------------------------------------------
+    def _ensure_obs(self):
+        from repro_torch.obs.telemetry import (
+            TheoryGauges, default_constants, make_divergence_probe,
+            make_sim_grad_probe)
+
+        if self._obs_probe is None:
+            self._obs_probe = make_divergence_probe(
+                self.net.num_clusters, self.net.cluster_size,
+                self.net.varrho)
+            self._obs_grad_probe = make_sim_grad_probe(
+                self.model, self.x, self.y)
+        if self._obs_gauges is None:
+            algo = self.algo
+            k = default_constants(float(np.min(self.net.varrho)))
+            if algo.constant_lr > 0:
+                self._obs_gauges = TheoryGauges(
+                    constants=k, tau=algo.tau, model_dim=self.model_dim,
+                    phi=algo.phi, lr=algo.constant_lr)
+            else:
+                self._obs_gauges = TheoryGauges(
+                    constants=k, tau=algo.tau, model_dim=self.model_dim,
+                    phi=algo.phi, gamma=algo.gamma, alpha=algo.alpha)
+
+    def _upsilon_for(self, st: TTHFState, spec) -> np.ndarray:
+        """Pre-mixing Definition-2 divergence for a consensus event —
+        the measured Υ_c that Lemma 1's bound takes as input."""
+        if spec.dynamic:
+            ups = self._upsilon_dyn(
+                st.params, torch.as_tensor(spec.device_up,
+                                           device=self.device))
+        else:
+            ups = self._upsilon(st.params)
+        return ups.cpu().numpy()
+
+    def _emit_round_telemetry(self, obs, st: TTHFState, b: int, ev,
+                              gamma_used, ups_pre, eta_b, t_prev_agg: int,
+                              ledger_mark: int, gamma_sat: int = 0) -> None:
+        """One drain per round: the probe over the round's fleet, then
+        the measured quantities, the theory-bound gauges and the round's
+        comms attribution into the shared JSONL stream (same ``step``
+        for all three)."""
+        from repro_torch.obs.telemetry import emit_comm
+
+        aux = {k: v.cpu().numpy()
+               for k, v in self._obs_probe(st.params).items()}
+        rec = {"active_devices": ev.active_devices, "eta": float(eta_b),
+               **aux}
+        rec.update(self._obs_gauges.round_gauges(b, t_prev_agg))
+        if ev.consensus is not None:
+            spec = ev.consensus
+            lambdas = spec.lambdas if spec.dynamic else self.net.lambdas
+            sizes = (spec.active_sizes if spec.dynamic
+                     else self.net.cluster_size)
+            rec["gamma_used"] = gamma_used
+            rec["upsilon_pre"] = ups_pre
+            rec["lemma1_bound"] = self._obs_gauges.lemma1(
+                lambdas, gamma_used, sizes, ups_pre)
+            rec["gamma_saturated"] = gamma_sat
+            rec["gamma_saturated_total"] = self._gamma_saturated_total
+        if ev.control is not None:
+            # controller decisions + measured-vs-assumed spectral gap,
+            # joined into the SAME row as the Lemma-1/Prop-1 gauges
+            rec.update(ev.control.round_fields())
+        obs.emit("round", b, **rec)
+        emit_comm(obs, self.ledger, ledger_mark, b)
+
+    # ------------------------------------------------------------------
     # control-plane measurements: the gradient statistics of the online
     # δ̂/σ̂ estimators, from the draw source's probe stream (the training
     # draws are untouched)
@@ -422,16 +501,21 @@ class TTHFTrainer:
     # ------------------------------------------------------------------
     def run(self, steps: int, seed: int = 0, eval_every: int = 5,
             state: TTHFState | None = None,
-            record_dispersion: bool = True) -> tuple[TTHFState, History]:
+            record_dispersion: bool = True,
+            obs=None) -> tuple[TTHFState, History]:
         """Drive Algorithm 1: the resolver names each boundary
         iteration's events; the local-SGD iterations up to it run, then
         the consensus event (if any) before the aggregation (if any),
         the controller's gradient probe after an aggregation (the
-        ``connectivity`` policy), then the round's bill and, on eval
-        iterations, the history."""
+        ``connectivity`` policy), then the round's bill, the round's
+        telemetry when ``obs`` is a live sink (default: ``NULL_OBS``)
+        and, on eval iterations, the history."""
         assert eval_every >= 1, "eval_every must be a positive period"
-        obs = NULL_OBS
+        obs = obs if obs is not None else NULL_OBS
         st = state or self.init(seed)
+        if obs.enabled:
+            self._ensure_obs()      # model_dim is set by init()
+        self._resolver.obs = obs
         hist = History()
         res = self._resolver
         ctl = res.controller
@@ -440,6 +524,7 @@ class TTHFTrainer:
                      eta_fn=lambda u: float(self.eta(u)))
         N = self.net.num_clusters
         t_last = st.t + steps
+        t_prev_agg = st.t           # Σ_t spans since the last aggregation
         t = st.t + 1
         with obs.span("run", mode="sim", steps=steps, t0=st.t):
             while t <= t_last:
@@ -451,7 +536,11 @@ class TTHFTrainer:
 
                     eta_b = self.eta(b - 1)
                     ev = res.resolve(b, st.draws)
+                    ups_pre = None
+                    if ev.consensus is not None and obs.enabled:
+                        ups_pre = self._upsilon_for(st, ev.consensus)
                     gamma_used = np.zeros((N,), np.int32)
+                    gamma_sat = 0
                     if ev.consensus is not None:
                         with obs.span("consensus_event", t=b):
                             gamma_used, gamma_sat = self._consensus_event(
@@ -463,7 +552,14 @@ class TTHFTrainer:
                             self._apply_aggregation(st, ev.aggregation)
                         if ctl is not None and ctl.wants_grad_stats:
                             self._observe_control_grads(st)
+                    ledger_mark = len(self.ledger.events)
                     ev.billing.charge(self.ledger, gamma_used)
+                    if obs.enabled:
+                        self._emit_round_telemetry(
+                            obs, st, b, ev, gamma_used, ups_pre, eta_b,
+                            t_prev_agg, ledger_mark, gamma_sat)
+                    if ev.aggregation is not None:
+                        t_prev_agg = b
 
                     if b % eval_every == 0 or b == t_last:
                         loss, acc = self._eval(st.global_params)
@@ -481,9 +577,14 @@ class TTHFTrainer:
                         hist.uplinks.append(self.ledger.uplinks)
                         hist.d2d_msgs.append(self.ledger.d2d_msgs)
                         hist.active_devices.append(ev.active_devices)
+                        if obs.enabled:
+                            obs.emit("eval", b, loss=loss, acc=acc,
+                                     grad_norm=float(self._obs_grad_probe(
+                                         st.global_params)))
                 t = b + 1
 
         st.t += steps
+        obs.flush()
         return st, hist
 
 

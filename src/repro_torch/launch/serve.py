@@ -28,10 +28,14 @@ Examples:
   python -m repro_torch.launch.serve --arch mamba2-370m --reduced \
       --batch 4 --prompt-len 64 --gen 16 --device cpu
 
+In the scheduler modes ``--trace-dir D`` writes the Chrome trace of the
+scheduler's spans (``D/trace.json``), one ``request`` record per retired
+request in ``D/metrics.jsonl`` and ``D/manifest.json``; ``--profile``
+adds a ``torch.profiler`` trace in ``D/torch_profile/trace.json``.
+
 Other ``--arch`` kinds raise (ROADMAP.md Queue 1 item 6b). Not ported
 yet, and refused with the ROADMAP.md item that brings them: ``--mesh``
-and ``--host-devices`` (Queue 1 item 8); ``--trace-dir`` and
-``--profile`` (item 5).
+and ``--host-devices`` (Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -82,9 +86,12 @@ def init_params(model, args, device):
 def run_scheduler_trace(args, cfg, model, device, params=None, **over):
     """Build the scheduler the flags name (``over`` adds or replaces its
     keyword arguments, e.g. ``ssd_kernel=False``) and drive the arrival
-    trace through it. Returns (scheduler, stats, arrivals, seconds of
-    the trace, ending in a device sync)."""
+    trace through it, instrumented when ``--trace-dir`` is given (one
+    ``request`` record per retired request; the sink is closed before
+    returning). Returns (scheduler, stats, arrivals, seconds of the
+    trace, ending in a device sync)."""
     import torch
+    from repro_torch.obs.sink import make_obs
     from repro_torch.serving import make_scheduler, run_trace
 
     kw = dict(slots=args.batch, max_prompt=args.prompt_len,
@@ -93,6 +100,11 @@ def run_scheduler_trace(args, cfg, model, device, params=None, **over):
               cache_dtype={"f32": torch.float32,
                            "bf16": torch.bfloat16}[args.cache_dtype],
               device=device)
+    obs = make_obs(args.trace_dir, profile=args.profile, run_name="serve",
+                   config={"args": vars(args)},
+                   extra={"arch": cfg.name, "scheduler": args.scheduler,
+                          "mesh": "single", "devices": 1})
+    kw["obs"] = obs
     if args.scheduler == "paged":
         kw["page_size"] = args.page_size
         if args.cache_pages:
@@ -107,13 +119,26 @@ def run_scheduler_trace(args, cfg, model, device, params=None, **over):
                              seed=args.seed,
                              prefix_template=args.prefix_template,
                              arrival_gap=args.arrival_gap)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.time()
-    stats = run_trace(sched, params, arrivals)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return sched, stats, arrivals, time.time() - t0
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.time()
+        stats = run_trace(sched, params, arrivals)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.time() - t0
+        # one JSONL record per retired request — queue latency and TTFT
+        # in step-clock ticks, same stream as everything else
+        for r in stats.records:
+            obs.emit("request", r.retire, rid=r.rid, submit=r.submit,
+                     admit=r.admit, first_token=r.first_token,
+                     queue_latency=r.queue_latency, ttft=r.ttft,
+                     decode=r.decode, budget=r.budget,
+                     prefill_chunks=r.prefill_chunks,
+                     prefix_pages_reused=r.prefix_pages_reused)
+    finally:
+        obs.close()
+    return sched, stats, arrivals, wall
 
 
 def _run_scheduler(args, cfg, model, device):
@@ -222,9 +247,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--host-devices", type=int, default=0,
                     help="not ported yet (ROADMAP.md Queue 1 item 8)")
     ap.add_argument("--trace-dir", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 5)")
+                    help="observability dir: Chrome trace, metrics.jsonl "
+                         "telemetry, run manifest")
     ap.add_argument("--profile", action="store_true",
-                    help="not ported yet (ROADMAP.md Queue 1 item 5)")
+                    help="also run torch.profiler over the run (written "
+                         "under <trace-dir>/torch_profile)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; the run "
                          "fails without one unless 'cpu' is given)")
@@ -237,10 +264,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--mesh/--host-devices are not ported yet (ROADMAP.md Queue 1 "
             "item 8)")
-    if args.trace_dir or args.profile:
-        raise NotImplementedError(
-            "--trace-dir/--profile are not ported yet (ROADMAP.md Queue 1 "
-            "item 5)")
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.runtime import resolve_device

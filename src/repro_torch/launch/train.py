@@ -14,7 +14,11 @@ In both modes ``--scenario`` (netsim weather), ``--hierarchy`` (a fog
 preset) and ``--control`` (a control policy) declare the round program
 (:func:`build_program`), as in the reference; control with a hierarchy,
 and control of a star baseline or star/local sync, raise ``ValueError``
-as the reference's assertions do.
+as the reference's assertions do. ``--trace-dir D`` writes the run's
+Chrome trace (``D/trace.json``), its metrics stream (``D/metrics.jsonl``:
+the ``round``, ``comm`` and ``eval`` records) and ``D/manifest.json``;
+``--profile`` adds a ``torch.profiler`` trace of host and CUDA activity
+in ``D/torch_profile/trace.json``.
 
 Examples:
   python -m repro_torch.launch.train --mode sim --model nn --hidden 7840 \
@@ -38,10 +42,12 @@ Examples:
       --steps 2                                   # full size, on the card
   python -m repro_torch.launch.train --mode scale --arch mamba2-370m \
       --steps 2
+  python -m repro_torch.launch.train --mode sim --model svm \
+      --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
+      --trace-dir runs/sim --profile --device cpu
 
-Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--arch`` of a kind other than dense or ssm (Queue 1 item 6b);
-``--trace-dir`` and ``--profile`` (item 5).
+Not ported yet, and refused with the ROADMAP.md item that brings it:
+``--arch`` of a kind other than dense or ssm (Queue 1 item 6b).
 """
 from __future__ import annotations
 
@@ -73,20 +79,13 @@ def build_program(args, tau: int):
                         control=control)
 
 
-def _refuse_unported(args) -> None:
-    if args.trace_dir or args.profile:
-        raise NotImplementedError(
-            "--trace-dir/--profile are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
-
-
 def run_sim(args):
     from repro_torch.configs import TopologyConfig, TTHFConfig
     from repro_torch.core import TTHFTrainer, make_baseline_config
     from repro_torch.data import fashion_synth, partition_noniid_labels
     from repro_torch.models import make_sim_model
+    from repro_torch.obs.sink import make_obs
 
-    _refuse_unported(args)
     x, y = fashion_synth(num_points=args.points, seed=args.seed)
     data = partition_noniid_labels(x, y, num_devices=args.devices,
                                    labels_per_device=3, seed=args.seed)
@@ -105,9 +104,18 @@ def run_sim(args):
     tr = TTHFTrainer(model, data, topo, algo, batch_size=args.batch,
                      use_kernel=True, program=build_program(args, algo.tau),
                      device=args.device)
+    # --trace-dir turns on spans + theory-bound telemetry + manifest;
+    # --profile adds the torch.profiler trace
+    obs = make_obs(args.trace_dir, profile=args.profile,
+                   run_name="train-sim",
+                   config={"args": vars(args), "algo": algo, "topo": topo},
+                   extra={"mode": "sim", "model": args.model})
     t0 = time.time()
-    st, hist = tr.run(steps=args.steps, seed=args.seed,
-                      eval_every=args.eval_every)
+    try:
+        st, hist = tr.run(steps=args.steps, seed=args.seed,
+                          eval_every=args.eval_every, obs=obs)
+    finally:
+        obs.close()
     dt = time.time() - t0
     by_level = "".join(f" L{l}={n}" for l, n in
                        sorted(tr.ledger.uplinks_by_level.items()))
@@ -128,7 +136,6 @@ def run_scale(args):
     from repro_torch.core.distributed import TTHFScaleConfig
     from repro_torch.train import ScaleTrainer, TrainerConfig
 
-    _refuse_unported(args)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -144,7 +151,8 @@ def run_scale(args):
     tr = ScaleTrainer(
         cfg, scale,
         TrainerConfig(batch_per_replica=args.batch, seq_len=args.seq,
-                      intervals=args.steps, eval_every=0, seed=args.seed),
+                      intervals=args.steps, eval_every=0, seed=args.seed,
+                      trace_dir=args.trace_dir, profile=args.profile),
         sync=args.sync, program=build_program(args, args.tau),
         device=args.device)
     t0 = time.time()
@@ -171,8 +179,12 @@ def main(argv=None):
     ap.add_argument("--consensus-every", type=int, default=5)
     ap.add_argument("--lr", type=float, default=2e-3)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--trace-dir", default=None,
+                    help="observability dir: Chrome trace, metrics.jsonl "
+                         "telemetry, run manifest")
+    ap.add_argument("--profile", action="store_true",
+                    help="also run torch.profiler over the run (written "
+                         "under <trace-dir>/torch_profile)")
     ap.add_argument("--scenario", default=None)
     ap.add_argument("--control", default="static",
                     choices=["static", "remark1", "connectivity"])

@@ -91,7 +91,8 @@ class RoundResolver:
         # calendar otherwise)
         self._agg_at = algo.tau if algo is not None else None
         self._edges = net.num_d2d_edges()
-        # observability sink: resolution spans/counters are no-ops
+        # observability sink (repro_torch.obs): trainers hand in the
+        # run's sink; until then resolution spans/counters are no-ops
         self.obs = NULL_OBS
 
     # ------------------------------------------------------------------
@@ -207,6 +208,8 @@ class RoundResolver:
         self.obs.counter("resolver", active_devices=active,
                          consensus=int(consensus is not None),
                          aggregation=int(aggregation is not None))
+        if dec is not None:
+            self.obs.counter("control", **self.controller.counters())
         return RoundEvent(t=t, active_devices=active, device_up=device_up,
                           consensus=consensus, aggregation=aggregation,
                           billing=billing, control=dec)
@@ -305,6 +308,8 @@ class RoundResolver:
                 self.scale.tau, 1),
             refresh=int(ev.refresh is not None),
             root_served=int(ev.root_served))
+        if ev.control is not None:
+            self.obs.counter("control", **self.controller.counters())
         return ev
 
     def _resolve_interval(self, interval: int, draws) -> ScaleRoundEvent:

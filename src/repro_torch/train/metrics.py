@@ -16,8 +16,8 @@ from typing import Any, Optional
 class MetricLogger:
     """Usable bare or as a context manager (closes the JSONL handle);
     ``window`` sizes the smoothing ring. This is also the JSONL sink
-    behind the reference's recording observability sink, which the port
-    has not ported yet (ROADMAP.md Queue 1 item 5)."""
+    behind :class:`repro_torch.obs.sink.Observability` — every record
+    kind (train / theory / comm / serve) shares one stream."""
 
     def __init__(self, out_path: Optional[str] = None,
                  console_every: int = 1, window: int = 100):

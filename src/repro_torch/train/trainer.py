@@ -4,7 +4,9 @@ communication ledger around :func:`repro_torch.core.distributed.
 make_tthf_train_step`.
 
 Handles: data sharding per replica, interval batching (tau x R x b x
-T), periodic held-out eval of the *global* model, and the ledger. Every
+T), periodic held-out eval of the *global* model, checkpoint save and
+resume, the ledger, and the observability sink (spans, the per-interval
+``round``/``comm`` records and the ``ledger`` counter). Every
 scenario (static, netsim dynamics, fog hierarchy, the control plane and
 their compositions) runs through ONE ``_interval``: the
 :class:`~repro_torch.rounds.resolver.RoundResolver` supplies the step's
@@ -20,21 +22,23 @@ seed of a host generator) from it. The port takes them from a *draw
 source* instead (``picks(N, s, k)`` or ``host_seed()``, one call per
 interval; default :class:`~repro_torch.core.sampling.TorchDraws`), so a
 test can feed it the reference's draws. The token streams are numpy and
-equal the reference's.
+equal the reference's. A checkpoint carries the draw source's state
+(``draws.state_dict()``) where the reference carries its key.
 
-Not ported yet, and refused: checkpoints (``ckpt_every > 0``) and the
-observability sink (``trace_dir``, ``profile``) — ROADMAP.md Queue 1
-item 5. The reference's ``donate`` knob has no counterpart: the port's
-step updates the parameters in place instead.
+The reference's ``donate=True`` is the port's only behaviour: its step
+updates the parameters in place, so ``donate=False`` raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs.base import (
     DynamicsConfig, HierarchyConfig, ModelConfig)
 from repro_torch.core.distributed import (
@@ -44,8 +48,10 @@ from repro_torch.core.mixing import build_mixing_plan, canonical_backend
 from repro_torch.core.sampling import TorchDraws
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.registry import ModelApi, build_model
+from repro_torch.obs.sink import make_obs
+from repro_torch.obs.telemetry import emit_comm
 from repro_torch.rounds import RoundProgram, RoundResolver
 from repro_torch.train.metrics import MetricLogger
 from repro_torch.train.prefetch import PrefetchLoader
@@ -61,15 +67,20 @@ class TrainerConfig:
     intervals: int = 10
     eval_every: int = 5
     eval_batches: int = 2
-    ckpt_every: int = 0             # 0 = off (checkpoints: Queue 1 item 5)
+    ckpt_every: int = 0             # 0 = off
+    ckpt_dir: str = "checkpoints"
     log_path: Optional[str] = None
     dtype: str = "float32"
     seed: int = 0
+    donate: bool = True             # the step updates params in place
     fused_interval: bool = False    # flat (R, P) param carrier + fused
                                     # SGD+consensus block-ends
     prefetch: bool = True           # build/copy interval k+1's batch
                                     # while interval k computes
-    trace_dir: Optional[str] = None   # observability: Queue 1 item 5
+    # observability (repro_torch.obs): a trace dir turns on the span
+    # tracer + theory-bound telemetry stream + run manifest; profile
+    # adds a torch.profiler trace in <trace_dir>/torch_profile/
+    trace_dir: Optional[str] = None
     profile: bool = False
 
     def __post_init__(self):
@@ -77,6 +88,9 @@ class TrainerConfig:
             raise ValueError(
                 f"unknown dtype {self.dtype!r}; expected one of "
                 f"{sorted(_DTYPES)}")
+        if not self.donate:
+            raise ValueError("donate=False: the port's step always "
+                             "updates the parameters in place")
 
 
 class ScaleTrainer:
@@ -91,11 +105,6 @@ class ScaleTrainer:
                 f"{cfg.name}: scale mode runs the dense and ssm kinds; the "
                 f"{cfg.kind!r} kind is not ported yet (ROADMAP.md Queue 1 "
                 "item 6b)")
-        if tcfg.ckpt_every or tcfg.trace_dir or tcfg.profile:
-            raise NotImplementedError(
-                "checkpoints (ckpt_every) and the observability sink "
-                "(trace_dir, profile) are not ported yet (ROADMAP.md "
-                "Queue 1 item 5)")
         if program is None:
             program = RoundProgram(dynamics=dynamics, hierarchy=hierarchy)
         elif dynamics is not None or hierarchy is not None:
@@ -145,7 +154,23 @@ class ScaleTrainer:
         self.tvnet = self._resolver.tvnet
         self.ledger = CommLedger()
         self.metrics = MetricLogger(tcfg.log_path)
+        # observability sink (NULL_OBS when trace_dir unset): spans,
+        # theory-bound telemetry, manifest. Probes are built at the
+        # first instrumented run and only read the parameters — an
+        # instrumented run is bitwise the bare one
+        self.obs = make_obs(
+            tcfg.trace_dir, profile=tcfg.profile, run_name="train-scale",
+            config={"model": cfg, "scale": scale, "trainer": tcfg},
+            extra={"arch": cfg.name, "sync": sync})
+        self._resolver.obs = self.obs
+        self._obs_probe = None
+        self._obs_grad_probe = None
+        self._obs_gauges = None
+        self._obs_gen = None        # dedicated grad-probe batch stream
         self._make_gens()
+        # resume fidelity: batches drawn so far from every train
+        # generator (identical across replicas) and from the eval
+        # stream — saved so that restore-and-continue replays neither
         self._train_draws = 0
         self._eval_draws = 0
         self.params = None
@@ -156,16 +181,18 @@ class ScaleTrainer:
         self._global: Optional[dict] = None
         self.interval = 0
 
-    def _make_gens(self):
+    def _make_gens(self, train_start: int = 0, eval_start: int = 0):
         """One token stream per replica and one for evaluation, seeded
-        as the reference's."""
+        as the reference's, already past the first ``train_start`` /
+        ``eval_start`` batches (restore seeks instead of replaying)."""
         tcfg, cfg = self.tcfg, self.cfg
         self._gens = [synthetic_token_batches(
             tcfg.batch_per_replica, tcfg.seq_len, cfg.vocab_size,
-            seed=tcfg.seed, shard_id=r) for r in range(self.scale.replicas)]
+            seed=tcfg.seed, shard_id=r, start=train_start)
+            for r in range(self.scale.replicas)]
         self._eval_gen = synthetic_token_batches(
             tcfg.batch_per_replica, tcfg.seq_len, cfg.vocab_size,
-            seed=tcfg.seed + 10_000, shard_id=99)
+            seed=tcfg.seed + 10_000, shard_id=99, start=eval_start)
 
     # ------------------------------------------------------------------
     def init(self, w0: Optional[dict] = None, draws: Any = None):
@@ -232,54 +259,228 @@ class ScaleTrainer:
                 losses.append(float(self.model.loss(g, b, dtype=self.dtype)))
         return float(np.mean(losses))
 
+    # ------------------------------------------------------------------
+    # observability
+    # ------------------------------------------------------------------
+    def _ensure_obs(self):
+        from repro_torch.obs.telemetry import (
+            TheoryGauges, default_constants, make_divergence_probe,
+            make_scale_grad_probe)
+
+        if self._obs_probe is not None:
+            return
+        self._obs_probe = make_divergence_probe(
+            self.scale.num_clusters, self.scale.cluster_size,
+            self.net.varrho)
+        self._obs_grad_probe = make_scale_grad_probe(self.model, self.dtype)
+        # a dedicated probe stream: grad-norm batches never touch the
+        # train/eval draws, so the data trajectory is unchanged
+        self._obs_gen = synthetic_token_batches(
+            self.tcfg.batch_per_replica, self.tcfg.seq_len,
+            self.cfg.vocab_size, seed=self.tcfg.seed + 20_000, shard_id=98)
+        model_dim = int(sum(l.numel()
+                            for l in tree_leaves(self._replica0())))
+        self._obs_gauges = TheoryGauges(
+            constants=default_constants(float(np.min(self.net.varrho))),
+            tau=self.scale.tau, model_dim=model_dim, lr=self.scale.lr)
+
+    def _probe_params(self):
+        """The replica stack the divergence probe reads: the per-leaf
+        tree, or the flat carrier without its pad columns."""
+        if self._spec is not None:
+            return self.params[:, :self._spec.total]
+        return self.params
+
+    def _emit_interval_telemetry(self, loss, ledger_mark, ev):
+        """One drain per interval: the probe over the parameters, then
+        measured divergence + theory gauges + comms attribution into the
+        shared JSONL stream. ``self.interval`` is still the 0-based
+        index of the interval that just ran."""
+        obs = self.obs
+        aux = {k: v.cpu().numpy()
+               for k, v in self._obs_probe(self._probe_params()).items()}
+        tau = self.scale.tau
+        t = (self.interval + 1) * tau
+        rec = {"train_loss": float(loss), **aux}
+        rec.update(self._obs_gauges.round_gauges(t, t - tau))
+        if self.scale.consensus_every:
+            N = self.scale.num_clusters
+            if ev.control is not None:
+                # the controller's realized (billed) per-cluster rounds
+                rec["gamma_used"] = np.asarray(ev.billing.consensus_gammas)
+            else:
+                rec["gamma_used"] = np.full((N,), self.scale.gamma_d2d)
+            rec["lemma1_bound"] = self._obs_gauges.lemma1(
+                self.net.lambdas, rec["gamma_used"],
+                self.scale.cluster_size, aux["upsilon"])
+        if ev.control is not None:
+            # decision + measured-vs-assumed λ joined into the same row
+            rec.update(ev.control.round_fields())
+        obs.emit("round", self.interval + 1, **rec)
+        emit_comm(obs, self.ledger, ledger_mark, self.interval + 1)
+
     def _interval(self, batch):
         """ONE interval for every scenario: the resolver's aggregation
         argument and refresh into the step, the root's snapshot when a
-        live root event broadcast it, then the interval's bill."""
+        live root event broadcast it, then the interval's bill. Spans
+        time the host's dispatch; nothing here waits for the card
+        unless the sink is on (the telemetry's drain)."""
+        obs = self.obs
+        ledger_mark = len(self.ledger.events)
         ev = self._resolver.resolve_interval(self.interval, self.draws)
-        self.params, loss = self._step(self.params, batch, ev.agg,
-                                       self.interval, ev.refresh)
+        with obs.span("interval", interval=self.interval,
+                      tau=self.scale.tau):
+            self.params, loss = self._step(self.params, batch, ev.agg,
+                                           self.interval, ev.refresh)
         if ev.root_served:
             # a copy: the step updates the replicas in place
             self._global = tree_map(lambda l: l.clone(), self._replica0())
         ev.billing.charge(self.ledger)
+        if obs.enabled:
+            # the interval folds its consensus/aggregation events into
+            # one step — mark them as instants so the trace still shows
+            # the two timescales
+            if ev.billing.consensus_repeats and \
+                    ev.billing.consensus_edges is not None:
+                obs.instant("consensus_event", interval=self.interval,
+                            repeats=ev.billing.consensus_repeats)
+            if ev.billing.uplinks_by_level:
+                obs.instant("aggregation", interval=self.interval,
+                            uplinks_by_level=ev.billing.uplinks_by_level,
+                            root_served=ev.root_served)
+            self._emit_interval_telemetry(loss, ledger_mark, ev)
         return loss
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def save(self, path: Optional[str] = None) -> str:
+        """Write the train state in the reference's checkpoint format:
+        the parameters as a per-leaf tree (whatever the carrier), the
+        interval, and in ``extra`` the draw source's state, the data
+        streams' positions, the ledger's counters and, under a fog
+        hierarchy, the served root snapshot."""
+        p = path or str(Path(self.tcfg.ckpt_dir)
+                        / f"interval_{self.interval:06d}.npz")
+        Path(p).parent.mkdir(parents=True, exist_ok=True)
+        extra = {
+            "draws": self.draws.state_dict(),
+            "train_draws": np.asarray(self._train_draws),
+            "eval_draws": np.asarray(self._eval_draws),
+            "ledger": {k: np.asarray(v) for k, v in
+                       dataclasses.asdict(self.ledger).items()
+                       if not isinstance(v, (dict, list))},
+            "uplinks_by_level": {
+                str(k): np.asarray(v)
+                for k, v in self.ledger.uplinks_by_level.items()},
+        }
+        if self.tree is not None:
+            extra["global"] = self._global   # the served root snapshot
+        params = (self._spec.unflatten(self.params)
+                  if self._spec is not None else self.params)
+        save_train_state(p, params, (), self.interval, extra=extra)
+        return p
+
+    def restore(self, path: str):
+        """Continue from a checkpoint of :meth:`save` (or of the
+        reference's trainer, whose key the port cannot use: its draws
+        then come from the current source). The parameters land on this
+        trainer's device in its carrier, the pad of the flat buffer
+        zero; the data streams are rebuilt seeked past the consumed
+        batches, so a trainer whose streams have advanced since rolls
+        back without skipping twice."""
+        params, _, self.interval, extra = restore_train_state(path)
+        params = tree_map(lambda v: torch.from_numpy(np.asarray(v)), params)
+        if self._spec is not None:
+            # flattened on the host: the card holds one copy
+            params = self._spec.flatten(params)
+        self.params = (params.to(self.device)
+                       if isinstance(params, torch.Tensor) else
+                       tree_map(lambda v: v.to(self.device), params))
+        if self.draws is None:
+            self.draws = TorchDraws(torch.Generator(device=self.device))
+        if "draws" in extra:
+            self.draws.load_state_dict(extra["draws"])
+        if self.tree is not None:
+            # the served root snapshot (a checkpoint without one: replica
+            # 0, exact from the next root event on)
+            g = extra.get("global")
+            self._global = (tree_map(lambda v: torch.from_numpy(
+                np.asarray(v)).to(self.device), g) if g is not None else
+                tree_map(lambda l: l.clone(), self._replica0()))
+        if "train_draws" in extra:
+            self._train_draws = int(extra["train_draws"])
+            self._eval_draws = int(extra["eval_draws"])
+            for k, v in extra["ledger"].items():
+                setattr(self.ledger, k, type(getattr(self.ledger, k))(v))
+            self.ledger.uplinks_by_level = {
+                int(k): int(v)
+                for k, v in extra.get("uplinks_by_level", {}).items()}
+            self._make_gens(train_start=self._train_draws,
+                            eval_start=self._eval_draws)
+        return self
 
     # ------------------------------------------------------------------
     def run(self, intervals: Optional[int] = None):
         if self.params is None:
             self.init()
+        obs = self.obs
+        if obs.enabled:
+            self._ensure_obs()
         n = intervals if intervals is not None else self.tcfg.intervals
         loader = None
         if self.tcfg.prefetch and n > 1:
             # interval k+1's batch builds/copies while k computes; draws
-            # are counted here per consumed batch
+            # are counted here per consumed batch, so a mid-run
+            # checkpoint never counts the batch in flight
             loader = PrefetchLoader(self._build_interval_batch, depth=1,
                                     put=self._to_device)
         try:
-            for _ in range(n):
-                if loader is not None:
-                    batch = loader.get()
-                    self._train_draws += self.scale.tau
-                else:
-                    batch = self._interval_batch()
-                loss = self._interval(batch)
-                self.interval += 1
-                logs = {"train_loss": float(loss),
-                        "uplinks": self.ledger.uplinks,
-                        "d2d_msgs": self.ledger.d2d_msgs}
-                if self.tcfg.eval_every and \
-                        self.interval % self.tcfg.eval_every == 0:
-                    logs["eval_loss"] = self.evaluate()
-                self.metrics.log(self.interval, **logs)
+            with obs.span("run", intervals=n, tau=self.scale.tau,
+                          replicas=self.scale.replicas):
+                for _ in range(n):
+                    with obs.span("round", interval=self.interval):
+                        self._run_interval(loader)
         finally:
             if loader is not None:
                 loader.close()
+            obs.flush()
         return self
 
+    def _run_interval(self, loader) -> None:
+        """One interval of :meth:`run`: its batch, the step, the logs,
+        the eval and the checkpoint that fall due."""
+        obs = self.obs
+        if loader is not None:
+            batch = loader.get()
+            self._train_draws += self.scale.tau
+        else:
+            batch = self._interval_batch()
+        loss = self._interval(batch)
+        self.interval += 1
+        logs = {"train_loss": float(loss),
+                "uplinks": self.ledger.uplinks,
+                "d2d_msgs": self.ledger.d2d_msgs}
+        if self.tcfg.eval_every and \
+                self.interval % self.tcfg.eval_every == 0:
+            with obs.span("eval", interval=self.interval):
+                logs["eval_loss"] = self.evaluate()
+            if obs.enabled:
+                b = self._to_device({k: torch.from_numpy(v) for k, v in
+                                     next(self._obs_gen).items()})
+                logs["grad_norm"] = float(self._obs_grad_probe(
+                    self._global_params(), b))
+                obs.emit("eval", self.interval, **logs)
+        self.metrics.log(self.interval, **logs)
+        if self.tcfg.ckpt_every and \
+                self.interval % self.tcfg.ckpt_every == 0:
+            self.save()
+
     def close(self):
-        """Close the metric sink."""
+        """Flush + close the metric and observability sinks (exports
+        the Chrome trace when a trace dir is set)."""
         self.metrics.close()
+        self.obs.close()
 
 
 __all__ = ["ScaleTrainer", "TrainerConfig"]

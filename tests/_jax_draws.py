@@ -16,7 +16,8 @@ k); device i's draw d is ``randint(split(k, I * K).reshape(I, K)[i, d],
 starts at ``PRNGKey(seed)`` and every interval splits it into (key, kp);
 the interval's picks are ``sample_devices(kp, N, s)`` (or
 ``sample_devices_multi`` for k > 1), and a host generator's seed is
-``randint(kp, (), 0, 2**31 - 1)``.
+``randint(kp, (), 0, 2**31 - 1)``. Its ``state_dict()`` is the current
+key, so that a checkpoint of the port's trainer resumes the schedule.
 """
 import jax
 import numpy as np
@@ -75,6 +76,13 @@ class JaxScaleReplayDraws:
     def __init__(self, seed):
         self.key = jax.random.PRNGKey(seed)
         self.host_seeds = 0
+
+    def state_dict(self):
+        """The cursor into the key schedule: the current key."""
+        return {"key": np.asarray(self.key)}
+
+    def load_state_dict(self, state):
+        self.key = jax.numpy.asarray(state["key"])
 
     def _split(self):
         self.key, kp = jax.random.split(self.key)

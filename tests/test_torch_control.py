@@ -16,6 +16,7 @@
 - ``static`` is bitwise the run without a policy; control with a fog
   hierarchy, and control of a star baseline, raise as in the reference.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

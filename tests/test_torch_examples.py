@@ -5,6 +5,7 @@ weights and replay its JAX draws (``init=``, ``params=``/``draws=``), so
 the adaptive Remark-1 Γ of the Sec.-IV run, which follows the
 trajectory, bills the same D2D rounds.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import importlib.util
 import re

@@ -15,6 +15,7 @@
 - ``flat`` is bitwise the run without a hierarchy; an all-dark event is
   the identity.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -2,6 +2,7 @@
 modules (topology, data, ledger, round programs) must agree EXACTLY;
 the ported schedules agree exactly in float32 (the Remark-1 Γ rule
 included); the static resolver emits the same event calendar."""
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -4,6 +4,7 @@ or the reference package ``repro``, every module imports and the twins
 run with both blocked, and the entry points refuse to
 run quietly on the CPU (no GPU and no explicit ``device="cpu"`` raises;
 ``chip_smoke.py`` exits non-zero without a card or without the repo)."""
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import ast
 import os
 import shutil
@@ -76,7 +77,10 @@ for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.hierarchy.aggregate", "repro_torch.control",
             "repro_torch.control.laws", "repro_torch.control.estimator",
             "repro_torch.control.policies",
-            "repro_torch.control.controller"):
+            "repro_torch.control.controller", "repro_torch.obs",
+            "repro_torch.obs.sink", "repro_torch.obs.trace",
+            "repro_torch.obs.manifest", "repro_torch.obs.telemetry",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"):
     assert new in names, new
 from repro_torch.netsim import scenarios
 tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
@@ -163,6 +167,19 @@ def test_port_imports_and_runs_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_profiler_failure_is_not_swallowed(monkeypatch, tmp_path):
+    """The reference swallows ``jax.profiler`` errors; the port's sink
+    lets a profiler that cannot start fail the run."""
+    from repro_torch.obs.sink import make_obs
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("profiler unavailable")
+    monkeypatch.setattr(torch.profiler, "profile", broken)
+    with pytest.raises(RuntimeError, match="profiler unavailable"):
+        make_obs(str(tmp_path / "obs"), profile=True)
+    assert make_obs(None, profile=True).enabled is False
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):

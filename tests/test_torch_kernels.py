@@ -16,6 +16,7 @@ and in bfloat16 (inputs rounded to bf16, both versions in float32
 inside) y within 1e-2 of max |y|: the two round different float32 sums
 to bfloat16, one bf16 step (2^-8 relative) apart at most.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ across rounds, so each is compared with its own counterpart.
 The kernel itself, on the card, is held against its plain version in
 ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

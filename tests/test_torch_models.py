@@ -4,6 +4,7 @@ against ``vmap(grad(loss))``) at weights carried by ``params_from_jax``.
 
 Tolerance: rtol 1e-5 / atol 1e-6 — float32 products summed in another
 order on the two sides."""
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ loss history to rtol 1e-4 (``tests/test_kernels.py``), ``gamma_used``,
 reference's JAX key schedule, including the seed of each aggregation's
 host generator (``repro.rounds.resolver.host_rng``).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import types
 

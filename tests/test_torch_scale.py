@@ -22,6 +22,7 @@ Tolerances, and why:
 - the two plain kernels against ``repro.kernels.ops`` (interpret):
   1e-6 in float32 and 1e-2 in bfloat16, ``tests/test_kernels.py``'s.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import re
 
 import jax
@@ -474,12 +475,18 @@ def test_prefetch_loader_surfaces_worker_error():
 
 
 def test_trainer_refuses_unported_options():
+    # checkpoints and the observability sink are ported
+    # (tests/test_torch_ckpt.py, tests/test_torch_obs.py); a kind other
+    # than dense or ssm is not, and the port's step always updates the
+    # parameters in place (the reference's donate=True)
     sc = _scale(dist.TTHFScaleConfig)
-    for kw in (dict(ckpt_every=1), dict(trace_dir="x"), dict(profile=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            ScaleTrainer(_CFG, sc, TrainerConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+        ScaleTrainer(get_arch("whisper-small").reduced(**_KW), sc,
+                     TrainerConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown dtype"):
         TrainerConfig(dtype="float16")
+    with pytest.raises(ValueError, match="in place"):
+        TrainerConfig(donate=False)
 
 
 def test_scale_cli_summary_line_matches_reference(capsys):

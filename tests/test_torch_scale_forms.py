@@ -16,6 +16,7 @@ reference's fused matrix path is no oracle (its own
 ``test_fused_interval_bitwise_matrix_agg`` fails, ROADMAP.md Queue 3),
 so both of the port's paths are held to the per-leaf one.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import re
 

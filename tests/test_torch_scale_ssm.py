@@ -7,6 +7,7 @@ chunk 32: the 16-token sequences pad to one chunk, as the full model's
 lr 0.05. The training gradient goes through the plain chunked scan on
 both sides. Loss rtol 1e-4, parameters atol 1e-5, the ledger exactly.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import re
 
 import numpy as np

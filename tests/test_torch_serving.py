@@ -18,6 +18,7 @@ Tolerances, and why:
 - a mixed-length prefill against solo prefills of the same model, the
   reference's 3e-4 (``tests/test_serving.py``).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 
@@ -638,9 +639,8 @@ def test_non_dense_kinds_and_unported_flags_raise():
         model = build_model(get_arch(arch).reduced())
         with pytest.raises(err, match="item 6|token-only"):
             PagedContinuousScheduler(model, device="cpu")
+    # --trace-dir and --profile are ported (tests/test_torch_obs.py)
     for flags, item in ((["--mesh", "host"], "item 8"),
-                        (["--host-devices", "8"], "item 8"),
-                        (["--trace-dir", "x"], "item 5"),
-                        (["--profile"], "item 5")):
+                        (["--host-devices", "8"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             serve_cli.main(["--reduced", "--device", "cpu"] + flags)

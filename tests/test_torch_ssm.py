@@ -17,6 +17,7 @@ Tolerances, and why:
 - the float32 loss to rtol 1e-5 and every gradient leaf within 1e-4 of
   that leaf's max |gradient| (observed below 1e-5).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,7 @@
 """``repro_torch.core.theory`` is a numpy copy of ``repro.core.theory``:
 every calculator and estimator gives exactly the reference's value on
 the same seeded inputs, and both raise alike."""
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

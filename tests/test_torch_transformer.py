@@ -13,6 +13,7 @@ Tolerances, and why:
 - building blocks (norms, RoPE, MLP, attention, cross-entropy) in
   float32: rtol 1e-5 / atol 1e-6.
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ The reference's masked_loop run is the oracle for the port with the
 kernel on and off (``tests/test_kernels.py`` holds the reference's own
 two backends to each other).
 """
+import _torch_threads  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import re
 
