@@ -5,19 +5,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives the port's nine main paths — the paper's Algorithm 1 in
+It drives the port's main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
 the 784-7840-10 NN), the same under the four dynamic netsim scenarios,
 under the four fog presets and under the two control policies, TT-HF as
 the scale-mode sync strategy on the full-size qwen1.5-0.5b (24 layers, d
 1024, vocabulary 151,936), the same at 8 replicas under a fog tree and
-under the control plane, and on the full-size mamba2-370m (48 Mamba-2
-layers, d 1024, 32 SSD heads of 64, state 128), paged
-continuous-batching serving of qwen1.5-0.5b, and continuous-batching
-serving of mamba2-370m — and holds every kernel of those paths against
-its plain PyTorch version; then the sim, scale and serve paths again with
-the observability sink and a full-width checkpoint, held to their bare
-runs.
+under the control plane (4 layers), on mamba2-370m (12 of its 48 Mamba-2
+layers, d 1024, 32 SSD heads of 64, state 128) and on recurrentgemma-9b
+at full width (5 of its 38 layers), paged continuous-batching serving of
+qwen1.5-0.5b and of the full recurrentgemma-9b (RG-LRU and local
+attention over a 2,048-token window), continuous-batching serving of
+mamba2-370m, and training and prefill past 2,048 tokens through the
+chunked ``flash_attention`` — and holds every kernel of those paths
+against its plain PyTorch version; then the sim, scale and serve paths
+again with the observability sink and a full-width checkpoint, held to
+their bare runs.
 Phases (any failure ends the run with a non-zero exit; nothing is
 caught):
 
@@ -45,10 +48,12 @@ caught):
              all-dummy rows with pos past their pages, the serve path's
              shape, a gemma-2b-like MQA, a starcoder2-3b-like GQA past
              its 4096 window in 160 splits, and the split's boundaries),
-             f32 and bf16 pools, atol 1e-5, a second launch bitwise equal
-             to the first; timed at the serve path's shape and with all 8
-             slots at position 639, its inputs rotated over copies larger
-             than the L2, beside the page gather plus
+             and the hybrid's serve shape (8 slots, K 1, G 16, hd 256,
+             window 2,048, slots before, at and past the window), f32
+             and bf16 pools, atol 1e-5, a second launch bitwise equal to
+             the first; timed at the serve path's shape, at the hybrid's
+             and with all 8 slots at position 639, its inputs rotated
+             over copies larger than the L2, beside the page gather plus
              ``scaled_dot_product_attention`` (two calls). ``ssd_scan``
              at the shapes of tests/test_kernels.py (ragged T = 130
              included; f32 max |Δy| / max |y| < 1e-4 and the final state
@@ -110,14 +115,17 @@ caught):
              ledger, the whole global model within atol 1e-5); and a
              reduced qwen run on the card against the same run on the
              CPU (loss rtol 1e-4).
-4b. scale-ssm — the same on the full-size mamba2-370m (the gradient
+4b. scale-ssm — the same on mamba2-370m at full width and 12 of its
+             48 layers (cut to pay for phases 4d, 5b and 5c; the gradient
              through the plain chunked scan: ``ssd_scan`` is forward
              only, and its counter must stay 0): 2 fused intervals after
              a warm-up (8 ``fused_consensus_sgd`` launches), the per-leaf
              step held to it, and a reduced mamba2 on the card against
              the CPU.
-4c. scale-forms — the same qwen1.5-0.5b at 8 replicas in clusters of 2
-             (N 4; τ 20, consensus every 5, Γ 2, batch 16 x 128), (a)
+4c. scale-forms — the same qwen1.5-0.5b at full width and 4 of its 24
+             layers (cut to pay for phases 4d, 5b and 5c) at 8 replicas
+             in clusters of 2 (N 4; τ 20, consensus every 5, Γ 2, batch
+             16 x 128), (a)
              under ``fog3`` and ``device_churn`` (the matrix form, each
              interval's refreshed W, a root event at interval 2) and (b)
              under ``connectivity`` and ``device_churn`` (the weights form
@@ -125,6 +133,15 @@ caught):
              ``fused_consensus_sgd`` launches with the interval's W), the
              per-leaf step held to it (loss rtol 1e-4, the same ledger,
              the served global model within atol 1e-5).
+4d. scale-hybrid — ``ScaleTrainer`` on recurrentgemma-9b at full width
+             and depth 5 (one (rec, rec, attn) group and the two-layer
+             tail; 2,174,906,368 parameters a replica): 2 replicas in one
+             cluster of 2, τ 20, consensus every 5, Γ 2, batch 4 x 128, 2
+             fused intervals (8 ``fused_consensus_sgd`` launches on the
+             hybrid's flat (2, P) buffer), the per-leaf step held to it
+             (loss rtol 1e-4, the same ledger, the global model within
+             atol 1e-5). Four replicas, or the full depth at one, do not
+             fit the card's 80 GB with the gradient and a copy.
 5. serve   — ``PagedContinuousScheduler`` on qwen1.5-0.5b at full size
              (random weights from seed 0, f32 weights and cache) through
              the serve CLI's trace (``launch/serve.py::make_arrivals``:
@@ -156,6 +173,29 @@ caught):
              plain run's, except at a request's first step where the
              plain run's top two logits are within 1e-4 of its max
              |logit| (the phase prints the margins).
+5b. serve-hybrid — the serve CLI's paged scheduler on the full
+             recurrentgemma-9b (``--arch recurrentgemma-9b --scheduler
+             paged --batch 8 --prompt-len 3072 --gen 64 --requests 8
+             --prefill-chunk 256 --temperature 0``, random f32 weights
+             from seed 0; prompts of 768-3,072 tokens), with the launch
+             counter reset just before (``paged_decode`` with its 2,048
+             window band once per attention layer per decode step, 12 x
+             decode steps; at least one slot decodes past the window),
+             every stat held to the same trace on the CPU at reduced
+             width; the plain gather (every stat equal) and the ring
+             ``ContinuousScheduler`` (one-shot prefills of 3,072 tokens
+             through ``flash_attention``, a ring of 2,048; the same
+             requests, prefills and tokens) held to it, greedy tokens by
+             the margin rule of phase 6; teacher-forced logits of 8
+             decode steps of the longest and the shortest prompt, kernel
+             against plain gather, within 1e-4 of max |logit|.
+5c. flash  — qwen1.5-0.5b at full width and depth on one 4,096-token
+             sequence: the loss, logits and every gradient through
+             ``flash_attention`` against the materialized attention
+             (loss rtol 1e-4, logits 1e-4 of max |logit|, gradient
+             relative L2 1e-4); a one-shot ring prefill of 3,000 tokens
+             (through flash) against 256-token paged chunks (last logits
+             within 1e-4 of max |logit|).
 7. forward-ssm — ``ModelApi.forward`` of the full-size mamba2-370m at
              batch 8 x 1024 tokens, f32, through the kernel against the
              plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
@@ -188,14 +228,17 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 ``--profile`` adds one profiled 20-step run of the sim path (static and
 under ``device_churn``), one profiled interval of each scale path and one
-profiled trace of each serve path, and prints the device time by kernel
-and the device's idle share. ``--phases slice-fog,slice-control,
-scale-forms,obs`` (any of those and ``kernels``) builds the kernels and
-runs only those phases (the sim ones and ``obs`` after phase 3's run,
-``obs`` also after phases 4 and 5), and prints no result line.
+profiled trace of each serve path (with the RG-LRU scan timed alone at
+a prefill chunk's shape), and prints the device time by kernel and the
+device's idle share. ``--phases slice-fog,slice-control,scale-forms,obs``
+(any of ``PARTIAL_PHASES``) builds the kernels and runs only those
+phases (the sim ones and ``obs`` after phase 3's run, ``obs`` also after
+phases 4 and 5), and prints no result line.
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -225,6 +268,29 @@ QWEN_P = 464_118_784
 # mamba2-370m's flat (R, P) buffer: 368,285,184 parameters, already a
 # multiple of 128 (no pad)
 MAMBA2_P = 368_285_184
+# [scale-forms] and [scale-ssm] run at a cut depth (full width, every
+# replica, program and W kept), to pay for the hybrid and flash phases
+# inside the time limit: qwen at 4 of its 24 layers, mamba2 at 12 of 48
+SCALE_FORMS_LAYERS = 4
+SCALE_FORMS_P = 207_115_264
+SCALE_SSM_LAYERS = 12
+SCALE_SSM_P = 130_803_840
+# the hybrid kind: the full recurrentgemma-9b (38 layers, 9,396,301,824
+# parameters) through the serve CLI's paged trace, prompts of 768-3,072
+# tokens across the 2,048-token window
+HYBRID_P = 9_396_301_824
+SERVE_HYBRID_ARGV = ["--arch", "recurrentgemma-9b", "--scheduler", "paged",
+                     "--batch", "8", "--prompt-len", "3072", "--gen", "64",
+                     "--requests", "8", "--prefill-chunk", "256",
+                     "--temperature", "0"]
+# [scale-hybrid]: full width, depth 5 (one (rec, rec, attn) group and the
+# two-layer tail): 2,174,906,368 parameters a replica
+SCALE_HYBRID_LAYERS = 5
+SCALE_HYBRID_P = 2_174_906_368
+# [flash]: qwen1.5-0.5b at full width and depth on one 4,096-token
+# sequence; a one-shot prefill of 3,000 tokens
+FLASH_T = 4096
+FLASH_PREFILL_T = 3000
 SCALE_LR = 2e-3                    # the scale CLI's --lr
 SCALE_BATCH = 16                   # the scale CLI's --batch (per replica)
 # paged_decode: name -> (B, K, G, hd, page_size, P, num_pages, window,
@@ -247,6 +313,10 @@ PAGED_CASES = {
     "split-retired": (4, 2, 2, 64, 16, 12, 49, 0, [67, None, 128, 5]),
     "split-all-masked": (4, 2, 2, 64, 16, 12, 49, 16, [211, None, 100, 232]),
     "odd-head": (3, 2, 3, 6, 4, 5, 16, 0, [0, 11, 19]),
+    # the hybrid's serve shape: MQA (K 1, G 16, hd 256), the 2,048 window
+    # band, 196 pages of 16 a slot; slots before, at and past the window
+    "hybrid-serve": (8, 1, 16, 256, 16, 196, 1569, 2048,
+                     [700, 1500, 2047, 2048, 2300, 2600, 3000, 3135]),
 }
 SPLIT_CHUNK = 64
 # timed only: the serve shape with every slot at its last position, so no
@@ -1228,8 +1298,9 @@ def scale_forms_config():
 
 
 def phase_scale_forms(intervals: int = 2, warm_up: bool = True) -> int:
-    """ScaleTrainer on the full-size qwen1.5-0.5b at 8 replicas under the
-    two programs of ``scale_forms_programs``: the fused interval through
+    """ScaleTrainer on qwen1.5-0.5b at full width and a cut depth
+    (``SCALE_FORMS_LAYERS``) at 8 replicas under the two programs of
+    ``scale_forms_programs``: the fused interval through
     ``fused_consensus_sgd`` with each interval's refreshed W (4 launches
     an interval), the per-leaf step held to it (loss rtol 1e-4, the same
     ledger, the served global model within atol 1e-5). ``warm_up``: one
@@ -1244,7 +1315,8 @@ def phase_scale_forms(intervals: int = 2, warm_up: bool = True) -> int:
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
 
-    cfg = get_arch("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b"),
+                              num_layers=SCALE_FORMS_LAYERS)
     scale = scale_forms_config()
     tokens = intervals * scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
@@ -1292,6 +1364,7 @@ def phase_scale_forms(intervals: int = 2, warm_up: bool = True) -> int:
         assert consensus_mix.launches == fused_sgd.launches == 0
         assert all(ev.refresh is not None for ev in evs), name
         total += launches
+        assert tr._spec.total == SCALE_FORMS_P, tr._spec.total
         served = [l.clone() for l in tree_leaves(tr._global_params())]
         levels = dict(tr.ledger.uplinks_by_level)
         gammas = [np.asarray(ev.billing.consensus_gammas).tolist()
@@ -1324,8 +1397,9 @@ def phase_scale_forms(intervals: int = 2, warm_up: bool = True) -> int:
         log(f"[scale-forms] {name}: per-leaf step, {intervals} intervals in "
             f"{wall2:.3f} s = {tokens / wall2:.1f} tokens/s, loss {losses2} "
             f"(rtol 1e-4 vs the fused run), same ledger, "
-            f"max_memory_allocated {peak2} B, served model ({QWEN_P} "
-            f"parameters) max |diff| {diff:.3e} (atol 1e-5)")
+            f"max_memory_allocated {peak2} B, served model "
+            f"({SCALE_FORMS_P} parameters, {SCALE_FORMS_LAYERS} layers) max "
+            f"|diff| {diff:.3e} (atol 1e-5)")
         del tr2, served
         torch.cuda.empty_cache()
     del w0
@@ -1492,11 +1566,11 @@ def phase_scale(profile: bool = False) -> tuple:
 
 
 def phase_scale_ssm(profile: bool = False) -> int:
-    """ScaleTrainer on the full-size mamba2-370m (the ssm kind; the
-    training gradient runs through the plain chunked scan, ssd_scan being
-    forward only): the fused interval (through fused_consensus_sgd), the
-    per-leaf step held to it, and a reduced mamba2 on the card held to
-    the CPU. Returns the fused run's fused_consensus_sgd launches."""
+    """ScaleTrainer on mamba2-370m at full width and a cut depth
+    (``SCALE_SSM_LAYERS``; the ssm kind; the training gradient runs
+    through the plain chunked scan, ssd_scan being forward only): the
+    fused interval (through fused_consensus_sgd), the per-leaf step held
+    to it, and a reduced mamba2 on the card held to the CPU. Returns the fused run's fused_consensus_sgd launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.distributed import TTHFScaleConfig
@@ -1507,8 +1581,9 @@ def phase_scale_ssm(profile: bool = False) -> int:
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
 
-    cfg = get_arch("mamba2-370m")
-    assert (cfg.kind, cfg.num_layers, cfg.d_model) == ("ssm", 48, 1024)
+    cfg = dataclasses.replace(get_arch("mamba2-370m"),
+                              num_layers=SCALE_SSM_LAYERS)
+    assert (cfg.kind, cfg.d_model) == ("ssm", 1024)
     scale = scale_cli_config()
     tokens_per_interval = scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
@@ -1533,14 +1608,15 @@ def phase_scale_ssm(profile: bool = False) -> int:
                                          weights=w0)
     launches, mixes, sgds, scans = counters()
     peak = torch.cuda.max_memory_allocated()
-    assert tr._spec.total == tr._spec.padded == MAMBA2_P, tr._spec.total
+    assert tr._spec.total == tr._spec.padded == SCALE_SSM_P, tr._spec.total
     assert np.isfinite(losses).all() and len(losses) == 2, losses
     # one launch per consensus block (4 a interval); the gradient goes
     # through the plain scan, and no other kernel runs
     assert (launches, mixes, sgds, scans) == (8, 0, 0, 0), counters()
     g_fused = tr.params[0].clone()
     spec = tr._spec
-    log(f"[scale-ssm] mamba2-370m fused interval: 2 intervals in "
+    log(f"[scale-ssm] mamba2-370m ({cfg.num_layers} layers) fused interval: "
+        f"2 intervals in "
         f"{wall:.3f} s = {2 / wall:.4f} intervals/s, "
         f"{2 * tokens_per_interval / wall:.1f} tokens/s, loss {losses}, "
         f"ledger {ledger}, fused_consensus_sgd launches {launches}, "
@@ -1565,11 +1641,12 @@ def phase_scale_ssm(profile: bool = False) -> int:
     diff = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(tr2._global_params()), spec.leaf_views(g_fused)))
     assert diff <= 1e-5, diff
-    log(f"[scale-ssm] mamba2-370m per-leaf step: 2 intervals in "
+    log(f"[scale-ssm] mamba2-370m ({cfg.num_layers} layers) per-leaf step: "
+        f"2 intervals in "
         f"{wall2:.3f} s = {2 / wall2:.4f} intervals/s, "
         f"{2 * tokens_per_interval / wall2:.1f} tokens/s, loss {losses2} "
         f"(rtol 1e-4 vs the fused run), same ledger, max_memory_allocated "
-        f"{peak2} B, global model ({MAMBA2_P} parameters) max |diff| "
+        f"{peak2} B, global model ({SCALE_SSM_P} parameters) max |diff| "
         f"{diff:.3e} (atol 1e-5)")
     del tr2, g_fused, w0
     torch.cuda.empty_cache()
@@ -1672,13 +1749,17 @@ def phase_paged_kernel() -> dict:
             log(f"[kernels] paged_decode {case} {PAGED_CASES[case][:8]} "
                 f"{dt} max_abs_err={err:.3e} (tol {PAGED_TOL})")
 
-    # the serve path's shape; then every slot at its last position
+    # the serve path's shape; then every slot at its last position; then
+    # the hybrid's serve shape with its window band
     numbers = time_paged(PAGED_CASES["qwen-serve"], "qwen-serve")
     numbers["at_balanced_shape"] = time_paged(PAGED_BALANCED,
                                               "qwen-balanced")
+    numbers["at_hybrid_shape"] = time_paged(PAGED_CASES["hybrid-serve"],
+                                            "hybrid-serve")
     numbers["max_abs_err_all_shapes"] = {
         "float32": max(worst["float32"], numbers["max_abs_err"],
-                       numbers["at_balanced_shape"]["max_abs_err"]),
+                       numbers["at_balanced_shape"]["max_abs_err"],
+                       numbers["at_hybrid_shape"]["max_abs_err"]),
         "bfloat16": worst["bfloat16"]}
     return numbers
 
@@ -1714,7 +1795,10 @@ def time_paged(spec, label: str) -> dict:
     kvs = [torch.stack([k, v]) for k, v in pools]
     pml = pm.long()
     k_pos = torch.arange(P * ps, device="cuda")
-    mask = (k_pos[None, :] <= pos.long()[:, None])[:, None, None, :]
+    keep = k_pos[None, :] <= pos.long()[:, None]
+    if window:
+        keep = keep & (k_pos[None, :] > pos.long()[:, None] - window)
+    mask = keep[:, None, None, :]
 
     def library(kv):
         g = kv[:, pml].reshape(2, B, P * ps, K, hd).transpose(2, 3)
@@ -1724,14 +1808,15 @@ def time_paged(spec, label: str) -> dict:
     rot = itertools.cycle(kvs)
     library_ms = device_ms(lambda: library(next(rot)), iters=100)
     # the positions the kernel walks: max(0, pos - window + 1) ..
-    # min(pos, P*ps - 1) (window 0 at these shapes)
-    assert window == 0
-    live = int((torch.clamp(pos.long(), max=P * ps - 1) + 1).sum())
+    # min(pos, P*ps - 1)
+    hi = torch.clamp(pos.long(), max=P * ps - 1)
+    lo = torch.clamp(pos.long() - window + 1, min=0) if window else 0 * hi
+    live = int((hi - lo + 1).clamp(min=0).sum())
     bytes_moved = (2 * live * K * hd * kp.element_size()
                    + 2 * q.numel() * 4 + (pm.numel() + pos.numel()) * 4)
     b_ms, b_by = bound(bytes_moved, 4 * live * K * G * hd)
     plan = split_plan(B, K, G, hd, ps, P, kp.dtype)
-    log(f"[kernels] paged_decode {label} {spec[:7]} f32, {live} live "
+    log(f"[kernels] paged_decode {label} {spec[:8]} f32, {live} live "
         f"positions, chunk {plan.chunk}, {plan.n_split} splits: kernel "
         f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, gather + "
         f"scaled_dot_product_attention {library_ms * 1e3:.2f} us (max |diff| "
@@ -2414,6 +2499,412 @@ SERVE_ARGV = ["--scheduler", "paged", "--batch", "8", "--prompt-len", "512",
               "--prefix-template", "128", "--temperature", "0"]
 
 
+# ---------------------------------------------------------------------------
+# the hybrid kind (recurrentgemma-9b) and the chunked flash_attention
+# ---------------------------------------------------------------------------
+
+def flash_counter():
+    """Count the calls of ``attention.flash_attention`` (plain torch, no
+    kernel: the count shows that a path went through flash). Returns
+    (the count, a function that removes the patch)."""
+    from repro_torch.models import attention as attn
+    count = [0]
+    original = attn.flash_attention
+
+    def counted(*a, **kw):
+        count[0] += 1
+        return original(*a, **kw)
+
+    attn.flash_attention = counted
+    return count, lambda: setattr(attn, "flash_attention", original)
+
+
+def phase_serve_hybrid(profile: bool = False) -> int:
+    """The serve CLI's paged scheduler on the full recurrentgemma-9b (38
+    layers: 12 local-attention layers with a 2,048-token window, 26
+    RG-LRU layers; random f32 weights from seed 0) through a trace whose
+    prompts cross the window: the main path (``paged_decode`` with its
+    window band in every attention layer of every decode step), the
+    plain gather and the ring ``ContinuousScheduler`` (one-shot prefills
+    through flash) held to it, teacher-forced logits, and the trace's
+    counts held to a CPU run at reduced width. Returns paged_decode's
+    launches in the main path's run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.transformer import hybrid_layout
+    from repro_torch.serving import (
+        PageTable, PagedContinuousScheduler, pages_per_slot)
+
+    args = serve_cli.parse_args(SERVE_HYBRID_ARGV)
+    cfg = get_arch(args.arch)
+    assert (cfg.kind, cfg.num_layers, cfg.d_model, cfg.attention_window) \
+        == ("hybrid", 38, 4096, 2048), cfg
+    n_attn = hybrid_layout(cfg)[1]
+    model = build_model(cfg)
+    device = torch.device("cuda")
+    params = serve_cli.init_params(model, args, device)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    assert n_params == HYBRID_P, n_params
+
+    def run(argv=(), **over):
+        a = serve_cli.parse_args(SERVE_HYBRID_ARGV + list(argv))
+        return serve_cli.run_scheduler_trace(a, cfg, model, device, params,
+                                             **over)
+
+    # the trace's counts at reduced width on the CPU (they follow from the
+    # trace, not from the weights)
+    small = cfg.reduced()
+    cpu_sched, cpu_stats, _, cpu_wall = serve_cli.run_scheduler_trace(
+        serve_cli.parse_args(SERVE_HYBRID_ARGV + ["--reduced"]), small,
+        build_model(small), torch.device("cpu"))
+    log(f"[serve-hybrid] the trace on the CPU at reduced width: "
+        f"{cpu_stats.prefills} prefills, {cpu_stats.decode_steps} decode "
+        f"steps, {cpu_stats.tokens_generated} tokens ({cpu_wall:.1f} s)")
+
+    # warm-up: allocator, cuBLAS handles at these widths
+    _, st, _, wall = run(["--requests", "1", "--gen", "2", "--prompt-len",
+                          "256"])
+    log(f"[serve-hybrid] warm-up: 1 request, {st.decode_steps} decode "
+        f"steps in {wall:.3f} s")
+
+    # the main path: the paged scheduler with the kernel (auto-on)
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode.launches = 0
+    sched, stats, arrivals, wall = run()
+    launches = paged_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    main = trace_stats(stats, sched)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in sched._cache["groups"]["attn"].values())
+    assert sched.paged_kernel and stats.requests_done == args.requests
+    assert main == trace_stats(cpu_stats, cpu_sched), "the counts moved"
+    assert launches == n_attn * stats.decode_steps, launches
+    assert sched.table.num_free == sched.cache_pages - 1   # no page leaked
+    assert sched.prefix_pages_possible == 0                # no sharing
+    assert all(len(r.out_tokens) == r.budget for _, r in arrivals)
+    plens = sorted(len(r.prompt) for _, r in arrivals)
+    last = {r.rid: len(r.prompt) + len(r.out_tokens) - 1
+            for _, r in arrivals}
+    past = sorted(rid for rid, p in last.items()
+                  if p >= cfg.attention_window)
+    assert past, "no slot decoded past the window"
+    log(f"[serve-hybrid] recurrentgemma-9b paged (kernel): {n_params} "
+        f"parameters, {stats.requests_done} requests (prompts {plens}), "
+        f"{stats.prefills} prefills in {sum(main['prefill_chunks'])} "
+        f"chunks, {stats.decode_steps} decode steps, "
+        f"{stats.tokens_generated} tokens in {wall:.3f} s = "
+        f"{stats.tokens_generated / wall:.1f} tokens/s, "
+        f"{stats.decode_steps / wall:.2f} decode steps/s, util "
+        f"{stats.utilization:.3f}; {len(past)} requests decoded past the "
+        f"{cfg.attention_window}-token window (last positions "
+        f"{sorted(last.values())}); paged_decode launches {launches} = "
+        f"{n_attn} x {stats.decode_steps}, pool {pool_bytes} B, "
+        f"max_memory_allocated {peak} B, no page leaked; every stat and "
+        f"record equal to the CPU run")
+    kernel_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    del sched
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: run()[3], "serve-hybrid trace (paged)")
+        # the RG-LRU scan's share: its elementwise kernels carry no name of
+        # their own, so time it alone at a prefill chunk's shape
+        from repro_torch.models.rglru import linear_scan
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shape = (1, args.prefill_chunk, cfg.rglru_width)
+        a = torch.rand(shape, generator=gen, device="cuda")
+        b = torch.randn(shape, generator=gen, device="cuda")
+        scan_ms = device_ms(lambda: linear_scan(a, b), iters=50)
+        n_scans = (cfg.num_layers - n_attn) * sum(main["prefill_chunks"])
+        log(f"[profile] RG-LRU linear_scan at {shape}: {scan_ms:.4f} ms a "
+            f"call; {n_scans} calls in the trace's prefill chunks = "
+            f"{scan_ms * n_scans / 1e3:.3f} s of device time")
+        del a, b
+
+    # the same trace through the plain gather, recording its margins
+    paged_decode.launches = 0
+    margins, unpatch = record_margins(PagedContinuousScheduler)
+    try:
+        sched, stats, arrivals, wall2 = run(paged_kernel=False)
+    finally:
+        unpatch()
+    assert paged_decode.launches == 0
+    assert trace_stats(stats, sched) == main
+    plain_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    parted = check_tokens("kernel", kernel_tokens, plain_tokens, margins)
+    closest = min(m / b for m, b in margins.values())
+    log(f"[serve-hybrid] plain gather: {wall2:.3f} s = "
+        f"{stats.tokens_generated / wall2:.1f} tokens/s (margins recorded), "
+        f"every stat and record equal to the kernel run; "
+        f"{len(plain_tokens) - len(parted)}/{len(plain_tokens)} requests "
+        f"with identical greedy tokens, partings (rid, token, margin / "
+        f"max|logit|) {parted}; smallest top-two margin "
+        f"{closest:.3e} of max |logit| (tol {LOGIT_TOL})")
+    del sched
+    torch.cuda.empty_cache()
+
+    # the ring scheduler: one-shot prefills of prompts padded to 3072,
+    # every attention layer through flash; a ring of 2048 slots
+    flashes, unpatch = flash_counter()
+    try:
+        sched, stats, arrivals, wall3 = run(["--scheduler", "continuous"])
+    finally:
+        unpatch()
+    ring = sched._cache["groups"]["attn"]["k"].shape[2]
+    assert ring == cfg.attention_window, ring
+    assert flashes[0] == n_attn * stats.prefills, flashes
+    for f in ("requests_done", "prefills", "tokens_generated"):
+        assert getattr(stats, f) == main[f], f
+    parted_ring = check_tokens(
+        "continuous", {r.rid: list(r.out_tokens) for _, r in arrivals},
+        plain_tokens, margins)
+    log(f"[serve-hybrid] ring ContinuousScheduler: {wall3:.3f} s = "
+        f"{stats.tokens_generated / wall3:.1f} tokens/s, "
+        f"{stats.decode_steps} decode steps, a ring of {ring}, "
+        f"flash_attention calls {flashes[0]} = {n_attn} x "
+        f"{stats.prefills} one-shot prefills of {args.prompt_len} tokens; "
+        f"requests, prefills and tokens equal to the paged run; partings "
+        f"from the plain paged run {parted_ring}")
+    del sched
+    torch.cuda.empty_cache()
+
+    # teacher forcing: the longest and the shortest prompt prefilled in
+    # chunks of 256, then 8 decode steps fed the same tokens through the
+    # kernel and through the plain gather
+    ps, chunk, steps = args.page_size, args.prefill_chunk, 8
+    order = sorted(arrivals, key=lambda a: len(a[1].prompt))
+    reqs = [order[-1][1], order[0][1]]
+    P = pages_per_slot(args.prompt_len + args.gen, ps)
+    cache = model.init_paged_cache(2, 2 * P + 1, ps, torch.float32,
+                                   device="cuda")
+    table = PageTable(2 * P + 1, ps)
+    page_map = np.zeros((2, P), np.int32)
+    for b, req in enumerate(reqs):
+        plen = len(req.prompt)
+        pages = table.alloc(-(-(plen + steps) // ps))
+        page_map[b, :len(pages)] = pages
+        padded = np.zeros((1, -(-plen // chunk) * chunk), np.int32)
+        padded[0, :plen] = req.prompt
+        for start in range(0, plen, chunk):
+            toks = torch.from_numpy(padded[:, start:start + chunk]).cuda()
+            model.prefill_chunk(params, cache, toks, start,
+                                min(chunk, plen - start), page_map[b], b,
+                                dtype=torch.float32)
+    cache_plain = tree_map(lambda t: t.clone(), cache)
+    feed = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(steps, 2, 1)).astype(np.int32)
+    pm = torch.from_numpy(page_map).cuda()
+    live = torch.ones(2, dtype=torch.bool, device="cuda")
+    pos = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                       device="cuda")
+    tf_err = tf_max = 0.0
+    for i in range(steps):
+        tok = torch.from_numpy(feed[i]).cuda()
+        lk, _ = model.decode_step_paged(params, tok, cache, pos, pm, live,
+                                        dtype=torch.float32, use_kernel=True)
+        lp, _ = model.decode_step_paged(params, tok, cache_plain, pos, pm,
+                                        live, dtype=torch.float32,
+                                        use_kernel=False)
+        assert torch.isfinite(lk).all()
+        tf_err = max(tf_err, float((lk - lp).abs().max()))
+        tf_max = max(tf_max, float(lp.abs().max()))
+        pos = pos + 1
+    assert tf_err <= LOGIT_TOL * tf_max, (tf_err, tf_max)
+    log(f"[serve-hybrid] teacher forcing, prompts of "
+        f"{[len(r.prompt) for r in reqs]} tokens in chunks of {chunk}, "
+        f"{steps} decode steps: logits max |kernel - plain| {tf_err:.3e} "
+        f"= {tf_err / tf_max:.3e} of max |logit| {tf_max:.3f} (tol "
+        f"{LOGIT_TOL})")
+    del cache, cache_plain, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_scale_hybrid() -> int:
+    """ScaleTrainer on recurrentgemma-9b at full width and depth 5 (one
+    (rec, rec, attn) group and the two-layer tail, the full model's
+    structure): 2 replicas in one cluster of 2, τ 20, consensus every 5,
+    Γ 2, batch 4 x 128, f32. The fused interval through
+    ``fused_consensus_sgd`` on the hybrid's flat (2, P) buffer (4
+    launches an interval), the per-leaf step held to it (loss rtol 1e-4,
+    the same ledger, the global model within atol 1e-5). Returns the
+    fused run's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import TTHFScaleConfig
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.fused_sgd import fused_sgd
+    from repro_torch.models.common import tree_leaves
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
+                              num_layers=SCALE_HYBRID_LAYERS)
+    scale = TTHFScaleConfig(replicas=2, cluster_size=2, tau=20,
+                            consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
+    batch, seq, intervals = 4, 128, 2
+    tokens = intervals * scale.tau * scale.replicas * batch * seq
+    # each run draws its weights in the trainer's init from seed 0 (the
+    # same weights): a third 8.7 GB copy held beside the (2, P) buffer,
+    # its gradient, the kernel's output and the buffer it replaces would
+    # not fit the 80 GB
+    torch.cuda.reset_peak_memory_stats()
+    fused_consensus_sgd.launches = consensus_mix.launches = 0
+    fused_sgd.launches = 0
+    tr, losses, wall, ledger = scale_run(cfg, scale, True, intervals,
+                                         "hybrid_fused", batch=batch,
+                                         seq=seq)
+    launches = fused_consensus_sgd.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert tr._spec.total == SCALE_HYBRID_P, tr._spec.total
+    assert np.isfinite(losses).all() and len(losses) == intervals, losses
+    assert launches == intervals * scale.tau // scale.consensus_every, \
+        launches
+    assert consensus_mix.launches == fused_sgd.launches == 0
+    spec = tr._spec
+    g_fused = tr.params[0].cpu()
+    log(f"[scale-hybrid] recurrentgemma-9b depth {cfg.num_layers} "
+        f"({SCALE_HYBRID_P} parameters a replica, flat buffer "
+        f"{tuple(tr.params.shape)}) fused interval: {intervals} intervals "
+        f"in {wall:.3f} s = {intervals / wall:.4f} intervals/s, "
+        f"{tokens / wall:.1f} tokens/s, loss {losses}, ledger {ledger}, "
+        f"fused_consensus_sgd launches {launches}, max_memory_allocated "
+        f"{peak} B")
+    del tr
+    torch.cuda.empty_cache()
+
+    fused_consensus_sgd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tr2, losses2, wall2, ledger2 = scale_run(cfg, scale, False, intervals,
+                                             "hybrid_perleaf", batch=batch,
+                                             seq=seq)
+    peak2 = torch.cuda.max_memory_allocated()
+    assert fused_consensus_sgd.launches == 0
+    np.testing.assert_allclose(losses2, losses, rtol=1e-4)
+    assert ledger2 == ledger, (ledger2, ledger)
+    diff = max(float((a - b.cuda()).abs().max()) for a, b in zip(
+        tree_leaves(tr2._global_params()), spec.leaf_views(g_fused)))
+    assert diff <= 1e-5, diff
+    log(f"[scale-hybrid] per-leaf step: {intervals} intervals in "
+        f"{wall2:.3f} s = {tokens / wall2:.1f} tokens/s, loss {losses2} "
+        f"(rtol 1e-4 vs the fused run), same ledger, max_memory_allocated "
+        f"{peak2} B, global model max |diff| {diff:.3e} (atol 1e-5)")
+    del tr2, g_fused
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flash() -> None:
+    """``flash_attention`` at full width: qwen1.5-0.5b (24 layers) on one
+    4,096-token sequence, the loss and every parameter's gradient through
+    flash (the training path past 2,048 tokens) against the materialized
+    attention (``flash_threshold`` raised: some 1 GB of f32 scores kept
+    a layer); and a one-shot ring prefill of a 3,000-token prompt
+    (through flash) against the same prompt in 256-token paged chunks."""
+    import functools
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import softmax_cross_entropy, tree_leaves
+    from repro_torch.serving import pages_per_slot
+
+    cfg = get_arch("qwen1.5-0.5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    leaves = tree_leaves(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, FLASH_T))).cuda()
+
+    def loss_and_grads():
+        for l in leaves:
+            l.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        logits, _ = model.forward(params, {"tokens": toks},
+                                  dtype=torch.float32)
+        loss = softmax_cross_entropy(logits, toks)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        for l in leaves:
+            l.requires_grad_(False)
+        return (logits.detach(), float(loss.detach()), grads, wall,
+                torch.cuda.max_memory_allocated())
+
+    flashes, unpatch = flash_counter()
+    try:
+        lf, loss_f, gf, wall_f, peak_f = loss_and_grads()
+    finally:
+        unpatch()
+    assert flashes[0] == cfg.num_layers, flashes
+    original = attn.attention_block
+    attn.attention_block = functools.partial(original,
+                                             flash_threshold=FLASH_T)
+    try:
+        lm, loss_m, gm, wall_m, peak_m = loss_and_grads()
+    finally:
+        attn.attention_block = original
+    logit_err = float((lf - lm).abs().max()) / float(lm.abs().max())
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gf, gm))
+    den = sum(float((b ** 2).sum()) for b in gm)
+    grad_rel = (num / den) ** 0.5
+    assert np.isfinite(loss_f) and abs(loss_f - loss_m) <= 1e-4 * abs(loss_m)
+    assert logit_err <= LOGIT_TOL, logit_err
+    assert grad_rel <= 1e-4, grad_rel
+    log(f"[flash] qwen1.5-0.5b ({cfg.num_layers} layers) on one "
+        f"{FLASH_T}-token sequence: loss through flash_attention "
+        f"{loss_f:.6f} vs materialized {loss_m:.6f}; logits max |diff| "
+        f"{logit_err:.3e} of max |logit| (tol {LOGIT_TOL}); gradient "
+        f"relative L2 {grad_rel:.3e} (tol 1e-4); forward + backward "
+        f"{wall_f:.3f} s, max_memory_allocated {peak_f} B through flash "
+        f"({flashes[0]} calls); {wall_m:.3f} s, {peak_m} B materialized")
+    del lf, lm, gf, gm
+    torch.cuda.empty_cache()
+
+    # a one-shot ring prefill past 2,048 tokens against paged chunks
+    prompt = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, size=FLASH_PREFILL_T).astype(np.int32)
+    flashes, unpatch = flash_counter()
+    try:
+        with torch.no_grad():
+            ring, _, pos = model.prefill(
+                params, {"tokens": torch.from_numpy(prompt[None]).cuda()},
+                dtype=torch.float32, cache_dtype=torch.float32)
+    finally:
+        unpatch()
+    assert flashes[0] == cfg.num_layers and int(pos) == FLASH_PREFILL_T
+    ps, chunk = 16, 256
+    P = pages_per_slot(FLASH_PREFILL_T, ps)
+    cache = model.init_paged_cache(1, P + 1, ps, torch.float32,
+                                   device="cuda")
+    row = np.arange(1, P + 1, dtype=np.int32)
+    padded = np.zeros((1, -(-FLASH_PREFILL_T // chunk) * chunk), np.int32)
+    padded[0, :FLASH_PREFILL_T] = prompt
+    with torch.no_grad():
+        for start in range(0, FLASH_PREFILL_T, chunk):
+            _, paged = model.prefill_chunk(
+                params, cache, torch.from_numpy(
+                    padded[:, start:start + chunk]).cuda(), start,
+                min(chunk, FLASH_PREFILL_T - start), row, 0,
+                dtype=torch.float32)
+    err = float((ring - paged).abs().max()) / float(paged.abs().max())
+    assert torch.isfinite(ring).all() and err <= LOGIT_TOL, err
+    log(f"[flash] one-shot ring prefill of a {FLASH_PREFILL_T}-token "
+        f"prompt ({flashes[0]} flash_attention calls) against "
+        f"{-(-FLASH_PREFILL_T // chunk)} paged chunks of {chunk}: last "
+        f"logits max |diff| {err:.3e} of max |logit| (tol {LOGIT_TOL})")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def obs_dir(name: str) -> Path:
     """A fresh trace dir under chiprun_out/."""
     import shutil
@@ -2795,9 +3286,14 @@ def phases_arg(argv) -> "list | None":
 # the phases ``--phases`` can run alone
 PARTIAL_PHASES = {
     "kernels": lambda: (phase_kernels(), phase_fused_kernels()),
+    "paged-kernel": phase_paged_kernel,
     "slice-fog": phase_slice_fog,
     "slice-control": phase_slice_control,
     "scale-forms": phase_scale_forms,
+    "scale-ssm": phase_scale_ssm,
+    "scale-hybrid": phase_scale_hybrid,
+    "serve-hybrid": phase_serve_hybrid,
+    "flash": phase_flash,
     "obs": phase_obs,
 }
 
@@ -2838,7 +3334,10 @@ def main() -> int:
             if name == "obs":       # held to the bare scale and serve runs
                 args += (timed("scale", phase_scale)[1],
                          timed("serve", phase_serve)[1])
-            timed(name, PARTIAL_PHASES[name], *args)
+            fn = PARTIAL_PHASES[name]
+            kw = ({"profile": True} if profile and "profile" in
+                  inspect.signature(fn).parameters else {})
+            timed(name, fn, *args, **kw)
         log(f"[partial] phases {only} passed; no result line")
         return 0
     numbers = {"consensus_mix": timed("kernels", phase_kernels),
@@ -2860,9 +3359,14 @@ def main() -> int:
         "scale": scale_launches["fused_consensus_sgd"],
         "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile),
         "scale-forms": timed("scale-forms", phase_scale_forms,
-                             warm_up=False)}
+                             warm_up=False),
+        "scale-hybrid": timed("scale-hybrid", phase_scale_hybrid)}
     serve_launches, serve_bare = timed("serve", phase_serve, profile=profile)
-    by_path["paged_decode"] = {"serve": serve_launches}
+    by_path["paged_decode"] = {
+        "serve": serve_launches,
+        "serve-hybrid": timed("serve-hybrid", phase_serve_hybrid,
+                              profile=profile)}
+    timed("flash", phase_flash)
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
                                               profile=profile)}
     timed("forward-ssm", phase_forward_ssm)

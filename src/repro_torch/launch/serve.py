@@ -12,9 +12,13 @@ lines. Four modes:
                 prefix sharing with --prefix-template
 
 The dense kind (qwen1.5-0.5b, the default ``--arch``, and the other
-attention archs) and the ssm kind (``--arch mamba2-370m``, served from
+attention archs), the ssm kind (``--arch mamba2-370m``, served from
 its per-slot state; on the card every prefill scan from a zero state
-runs the ``ssd_scan`` kernel) in all four modes.
+runs the ``ssd_scan`` kernel) and the hybrid kind (``--arch
+recurrentgemma-9b``: RG-LRU state per slot and local attention over a
+2,048-token window — a ring of 2,048 slots, or pages masked to the
+window band by ``paged_decode``; a one-shot prefill past 2,048 tokens
+attends through ``flash_attention``) in all four modes.
 
 Examples:
   python -m repro_torch.launch.serve --scheduler paged --requests 32 \
@@ -27,13 +31,19 @@ Examples:
       --temperature 0 --device cpu
   python -m repro_torch.launch.serve --arch mamba2-370m --reduced \
       --batch 4 --prompt-len 64 --gen 16 --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced \
+      --scheduler paged --temperature 0 --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+      --scheduler paged --batch 8 --prompt-len 3072 --gen 64 \
+      --requests 8 --prefill-chunk 256 --temperature 0   # on the card
 
 In the scheduler modes ``--trace-dir D`` writes the Chrome trace of the
 scheduler's spans (``D/trace.json``), one ``request`` record per retired
 request in ``D/metrics.jsonl`` and ``D/manifest.json``; ``--profile``
 adds a ``torch.profiler`` trace in ``D/torch_profile/trace.json``.
 
-Other ``--arch`` kinds raise (ROADMAP.md Queue 1 item 6b). Not ported
+Other ``--arch`` kinds raise: moe (ROADMAP.md Queue 1 item 6b), vlm and
+audio (item 6c). Not ported
 yet, and refused with the ROADMAP.md item that brings them: ``--mesh``
 and ``--host-devices`` (Queue 1 item 8).
 """

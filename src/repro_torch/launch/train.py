@@ -5,8 +5,9 @@
                      D2D mixing always goes through the ``consensus_mix``
                      wrapper: on the CUDA device it launches the kernel,
                      and on the CPU it runs the kernel's plain version.
-* ``--mode scale`` — TT-HF as the sync strategy for a dense or ssm
-                     model-zoo arch (``--arch``) through ``ScaleTrainer``,
+* ``--mode scale`` — TT-HF as the sync strategy for a dense, ssm or
+                     hybrid model-zoo arch (``--arch``) through
+                     ``ScaleTrainer``,
                      on one device, with the reference's per-leaf
                      interval step.
 
@@ -42,12 +43,16 @@ Examples:
       --steps 2                                   # full size, on the card
   python -m repro_torch.launch.train --mode scale --arch mamba2-370m \
       --steps 2
+  python -m repro_torch.launch.train --mode scale \
+      --arch recurrentgemma-9b --reduced --steps 2 --tau 2 --batch 2 \
+      --seq 16 --device cpu
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
       --trace-dir runs/sim --profile --device cpu
 
 Not ported yet, and refused with the ROADMAP.md item that brings it:
-``--arch`` of a kind other than dense or ssm (Queue 1 item 6b).
+``--arch`` of a kind other than dense, ssm or hybrid (Queue 1 items 6b
+and 6c).
 """
 from __future__ import annotations
 

@@ -7,10 +7,14 @@ G = query heads per kv head), keys and values ``(B, T, K, hd)``, and
 masked scores take ``NEG_INF``. Scores and the weighted sum accumulate
 in float32 (the reference's ``preferred_element_type``).
 
-Only the materialized path is ported: ``attention_block`` handles
-``max(T, Tk) <= flash_threshold`` (2048). Longer sequences need the
-chunked online-softmax ``flash_attention``, which comes with the other
-families (ROADMAP.md, Queue 1 item 6b).
+``attention_block`` materializes the scores up to ``max(T, Tk) ==
+flash_threshold`` (2048) and runs the chunked online-softmax
+:func:`flash_attention` past it: plain torch over (q_chunk, k_chunk)
+tiles, with the reference's flash-style backward (a
+``torch.autograd.Function`` that recomputes each tile's probabilities
+from the saved log-sum-exp, so the residuals are O(T)). The reference's
+pair-scheduled variant (``flash_attention_pairs``), which only its
+dry-run switches on, is not ported (ROADMAP.md Queue 1 item 8).
 
 The decode paths of serving are here too: the ring cache
 (:func:`init_cache`, :func:`decode_attention`) and the paged cache
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.models.common import (
@@ -107,6 +112,159 @@ def simple_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# chunked online-softmax attention with a flash-style backward
+# ---------------------------------------------------------------------------
+
+def _tile_scores(qi, ki, q_pos, k_pos, *, scale, mode, window, prefix_len,
+                 k_len) -> torch.Tensor:
+    """Masked float32 scores of one (q_chunk, k_chunk) tile,
+    (B, K, G, qc, kc)."""
+    s = torch.einsum("btkgh,bskh->bkgts", (qi * scale).float(), ki.float())
+    keep = _mask_block(q_pos, k_pos, mode, window, prefix_len)
+    if k_len is not None:
+        keep = keep & (k_pos[None, :] < k_len)
+    return s.masked_fill(~keep, NEG_INF)
+
+
+def _flash_fwd(q, k, v, mode, window, prefix_len, q_offset, q_chunk,
+               k_chunk, k_len):
+    """-> (out (B, Tq, K, G, hd) in q's dtype, lse (B, Tq, K, G) f32)."""
+    B, Tq, K, G, hd = q.shape
+    Tk = k.shape[1]
+    assert Tq % q_chunk == 0 and Tk % k_chunk == 0, (Tq, Tk)
+    scale = hd ** -0.5
+    dev = q.device
+    outs, lses = [], []
+    for q0 in range(0, Tq, q_chunk):
+        qi = q[:, q0:q0 + q_chunk]
+        q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((B, K, G, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, K, G, q_chunk), dtype=torch.float32, device=dev)
+        for k0 in range(0, Tk, k_chunk):
+            k_pos = k0 + torch.arange(k_chunk, device=dev)
+            s = _tile_scores(qi, k[:, k0:k0 + k_chunk], q_pos, k_pos,
+                             scale=scale, mode=mode, window=window,
+                             prefix_len=prefix_len, k_len=k_len)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgts,bskh->bkgth", p, v[:, k0:k0 + k_chunk].float())
+            m = m_new
+        l_safe = torch.clamp(l, min=1e-30)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l_safe))             # (B, K, G, qc)
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)
+    lse = torch.cat(lses, dim=3).permute(0, 3, 1, 2)
+    return out.contiguous(), lse.contiguous()
+
+
+def _flash_bwd(q, k, v, out, lse, dout, mode, window, prefix_len, q_offset,
+               q_chunk, k_chunk, k_len):
+    """The reference's ``_flash_bwd``: for each k chunk, every q chunk's
+    probabilities recomputed from ``lse``; dK and dV summed over the q
+    chunks, dQ over the k chunks, in the reference's order."""
+    B, Tq, K, G, hd = q.shape
+    Tk = k.shape[1]
+    scale = hd ** -0.5
+    dev = q.device
+    delta = torch.sum(dout.float() * out.float(), dim=-1)   # (B, Tq, K, G)
+    dq = torch.zeros((B, Tq, K, G, hd), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for k0 in range(0, Tk, k_chunk):
+        ki = k[:, k0:k0 + k_chunk]
+        vi = v[:, k0:k0 + k_chunk].float()
+        k_pos = k0 + torch.arange(k_chunk, device=dev)
+        dki = torch.zeros((B, k_chunk, K, hd), dtype=torch.float32,
+                          device=dev)
+        dvi = torch.zeros_like(dki)
+        for q0 in range(0, Tq, q_chunk):
+            rows = slice(q0, q0 + q_chunk)
+            qi = q[:, rows]
+            q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
+            s = _tile_scores(qi, ki, q_pos, k_pos, scale=scale, mode=mode,
+                             window=window, prefix_len=prefix_len,
+                             k_len=k_len)
+            lse_a = lse[:, rows].permute(0, 2, 3, 1)       # (B, K, G, qc)
+            del_a = delta[:, rows].permute(0, 2, 3, 1)
+            p = torch.exp(s - lse_a[..., None])
+            do_b = dout[:, rows].permute(0, 2, 3, 1, 4).float()
+            dvi = dvi + torch.einsum("bkgts,bkgth->bskh", p, do_b)
+            dp = torch.einsum("bkgth,bskh->bkgts", do_b, vi)
+            ds = p * (dp - del_a[..., None]) * scale
+            dq_blk = torch.einsum("bkgts,bskh->bkgth", ds, ki.float())
+            q_b = qi.permute(0, 2, 3, 1, 4).float()
+            dki = dki + torch.einsum("bkgts,bkgth->bskh", ds, q_b)
+            dq[:, rows] += dq_blk.permute(0, 3, 1, 2, 4)
+        dks.append(dki)
+        dvs.append(dvi)
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` of ``_flash``: the residuals
+    are q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = _flash_fwd(q, k, v, *opts)
+        ctx.opts = opts
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_flash_bwd(*ctx.saved_tensors, dout, *ctx.opts), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    mode: str = "causal", window: int = 0, prefix_len=None,
+                    q_offset: int = 0, q_chunk: int = 512,
+                    k_chunk: int = 1024, k_len=None) -> torch.Tensor:
+    """Chunked online-softmax attention with a flash-style backward.
+
+    q: (B, Tq, K, G, hd); k, v: (B, Tk, K, hd). Tq % q_chunk == 0 and
+    Tk % k_chunk == 0 (the caller pads; ``k_len`` masks the key
+    padding). Every (q_chunk, k_chunk) tile is computed, masked or not,
+    as in the reference; the backward recomputes each tile's scores, so
+    no more than one tile of probabilities is ever held."""
+    return _Flash.apply(q, k, v, (mode, window, prefix_len, q_offset,
+                                  q_chunk, k_chunk, k_len))
+
+
+def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       mode: str = "causal", window: int = 0,
+                       prefix_len=None,
+                       flash_threshold: int = 2048) -> torch.Tensor:
+    """Attention over a whole sequence (training, prefill): the
+    materialized :func:`simple_attention` up to ``max(Tq, Tk) ==
+    flash_threshold``, else :func:`flash_attention` with the reference's
+    chunks (``q_chunk = min(512, Tq)``, ``k_chunk = min(1024, Tk)``),
+    q, k and v zero-padded to chunk multiples and the key padding masked
+    by ``k_len``."""
+    T, Tk = q.shape[1], k.shape[1]
+    if max(T, Tk) <= flash_threshold:
+        return simple_attention(q, k, v, mode=mode, window=window,
+                                prefix_len=prefix_len)
+    qc, kc = min(512, T), min(1024, Tk)
+    pq, pk = (-T) % qc, (-Tk) % kc
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    out = flash_attention(q, k, v, mode=mode, window=window,
+                          prefix_len=prefix_len, q_chunk=qc, k_chunk=kc,
+                          k_len=Tk if pk else None)
+    return out[:, :T]
+
+
+# ---------------------------------------------------------------------------
 # the full attention block (projections)
 # ---------------------------------------------------------------------------
 
@@ -135,13 +293,9 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
                     positions: Optional[torch.Tensor] = None,
                     flash_threshold: int = 2048) -> torch.Tensor:
     """Self-attention over a full sequence (training). x: (B, T, d) ->
-    (B, T, d)."""
+    (B, T, d); past ``flash_threshold`` tokens through
+    :func:`flash_attention`."""
     B, T, _ = x.shape
-    if T > flash_threshold:
-        raise NotImplementedError(
-            f"sequence length {T} > {flash_threshold} needs the chunked "
-            "flash_attention, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 6b)")
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if cfg.rope:
@@ -150,8 +304,9 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
         q = rope(q.reshape(B, T, -1, cfg.head_dim), pos,
                  cfg.rope_theta).reshape(q.shape)
         k = rope(k, pos, cfg.rope_theta)
-    out = simple_attention(q, k, v, mode=mode, window=window,
-                           prefix_len=prefix_len)
+    out = sequence_attention(q, k, v, mode=mode, window=window,
+                             prefix_len=prefix_len,
+                             flash_threshold=flash_threshold)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype)
 
@@ -307,6 +462,7 @@ def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     return out @ p["wo"].to(x.dtype), cache
 
 
-__all__ = ["NEG_INF", "attention_block", "decode_attention", "init_attention",
-           "init_cache", "init_paged_cache", "page_flat_index",
-           "paged_decode_attention", "rotary_angles", "simple_attention"]
+__all__ = ["NEG_INF", "attention_block", "decode_attention",
+           "flash_attention", "init_attention", "init_cache",
+           "init_paged_cache", "page_flat_index", "paged_decode_attention",
+           "rotary_angles", "sequence_attention", "simple_attention"]

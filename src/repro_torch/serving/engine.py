@@ -1,18 +1,21 @@
-"""Serving runtime for the dense and ssm kinds — the port of
+"""Serving runtime for the dense, ssm and hybrid kinds — the port of
 ``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
 single-token decode, and the paged cache's chunked prefill and page-map
 decode.
 
-Cache layout: one dict per model whose leaves carry a leading ``layers``
-axis, as in the reference. Sliding-window archs (and the serving-window
-variant of full-attention archs) keep a **ring buffer** of ``window``
-positions in the ring cache: slot = pos % window, keys stored post-RoPE.
-The paged cache stores attention K/V as a page pool ``(layers,
-num_pages, page_size, K, hd)`` shared by every slot (page 0 is the dummy
-sink) and masks a [pos - window, pos] band instead. The ssm kind keeps
-per-slot recurrent state in both caches (``h`` (layers, slots, H, S, P)
-float32 and the conv contexts ``conv_x``/``conv_B``/``conv_C``) and no
-pages.
+Cache layout: one dict per model in the stack layout of the parameters
+(``layers``; the hybrid kind's ``groups`` of ``{rec_0, rec_1, attn}``
+and ``tail``), every leaf with the stack's leading axis, as in the
+reference. Sliding-window archs (the hybrid kind's local attention, and
+the serving-window variant of full-attention archs) keep a **ring
+buffer** of ``window`` positions in the ring cache: slot = pos % window,
+keys stored post-RoPE. The paged cache stores attention K/V as a page
+pool ``(layers, num_pages, page_size, K, hd)`` shared by every slot
+(page 0 is the dummy sink) and masks a [pos - window, pos] band instead.
+Recurrent layers keep per-slot state in both caches and no pages: the
+ssm kind's ``h`` (slots, H, S, P) float32 and conv contexts
+``conv_x``/``conv_B``/``conv_C``, an RG-LRU layer's ``h`` (slots, w)
+float32 and ``conv``.
 
 The reference threads the cache through ``lax.scan`` and returns a new
 one from every step. The port walks the layers with a Python loop over
@@ -23,12 +26,12 @@ place and returns it. Chunk offsets, valid counts and slot indices are
 Python ints (the reference traced them for one jit signature; eager
 torch needs none, and a host int costs no device sync).
 
-The dense and ssm kinds are ported; the other kinds raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b. A dense
-prefill takes up to 2048 tokens (the materialized attention; the chunked
-flash path comes with item 6b); an ssm prefill has no such limit.
-``use_kernel`` on :func:`prefill` and :func:`prefill_chunk` sends every
-SSD scan that starts from a zero state (a one-shot prefill, a prompt's
+The dense, ssm and hybrid kinds are ported; the other kinds raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b or 6c. A
+one-shot prefill past 2048 tokens attends through the chunked
+``flash_attention`` (the reference's branch); a paged chunk attends to
+its slot's gathered pages, materialized. ``use_kernel`` on
+:func:`prefill` and :func:`prefill_chunk` sends every SSD scan that starts from a zero state (a one-shot prefill, a prompt's
 first chunk) through the ``ssd_scan`` kernel; a later chunk carries its
 slot's state and takes the plain ``ssd_chunked``.
 """
@@ -40,15 +43,17 @@ import torch
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import rglru as rgm
 from repro_torch.models import ssm as ssmm
-from repro_torch.models.common import apply_norm, apply_rope
+from repro_torch.models.common import (
+    apply_norm, apply_rope, tree_items, tree_leaves)
 from repro_torch.models.transformer import (
-    _embed_tokens, _unembed, _unstack, require_ported)
+    _embed_tokens, _unembed, attention_mode, hybrid_layout, require_ported,
+    walk_layers)
 
-# the kinds the paged design serves (the reference's); the port runs dense
-# and ssm
+# the kinds the paged design serves (the reference's); the port runs
+# dense, ssm and hybrid
 PAGED_KINDS = ("dense", "moe", "ssm", "hybrid")
-_MAX_PREFILL = 2048            # the materialized attention's limit
 _CONV_LEAVES = ("conv_x", "conv_B", "conv_C")
 
 
@@ -60,24 +65,38 @@ def _require_paged(cfg) -> None:
     require_ported(cfg)
 
 
-def _mode_window(cfg, serve_window: int) -> tuple[str, int]:
-    if cfg.sliding_window:
-        return "sliding", cfg.sliding_window
-    if serve_window:
-        return "sliding", serve_window
-    return "causal", 0
+def _stack_leaves(one: dict, n: int) -> dict:
+    """One layer's (or group's) cache leaves stacked on a leading axis."""
+    return {k: (_stack_leaves(v, n) if isinstance(v, dict)
+                else v[None].expand((n,) + v.shape).contiguous())
+            for k, v in one.items()}
 
 
-def _layers(cfg, p, cache) -> zip:
-    """(layer params, layer cache) views, layer by layer."""
-    n = cfg.num_layers
-    return zip(_unstack(p["layers"], n), _unstack(cache["layers"], n))
+def _cache_tree(cfg, make: dict) -> dict:
+    """The whole model's cache in the stack layout of the parameters:
+    ``make[kind]()`` gives one layer's leaves for each layer kind
+    ("attn", "ssm", "rec"), stacked as :func:`walk_layers` walks them."""
+    if cfg.kind != "hybrid":
+        kind = "ssm" if cfg.kind == "ssm" else "attn"
+        return {"layers": _stack_leaves(make[kind](), cfg.num_layers)}
+    period, n_groups, rem = hybrid_layout(cfg)
+    tree = {}
+    if n_groups:
+        group = {f"rec_{i}": make["rec"]() for i in range(period - 1)}
+        group["attn"] = make["attn"]()
+        tree["groups"] = _stack_leaves(group, n_groups)
+    if rem:
+        tree["tail"] = _stack_leaves(make["rec"](), rem)
+    return tree
 
 
-def _stacked(one: dict, n: int) -> dict:
-    """One layer's cache leaves stacked on a leading ``layers`` axis."""
-    return {"layers": {k: v[None].expand((n,) + v.shape).contiguous()
-                       for k, v in one.items()}}
+def _kv_pool(cfg, cache: dict):
+    """The first attention stack's K leaf (its page size or ring length
+    is every attention layer's), or None when the model has no
+    attention layer."""
+    if cfg.kind == "hybrid":
+        return cache["groups"]["attn"]["k"] if "groups" in cache else None
+    return None if cfg.kind == "ssm" else cache["layers"]["k"]
 
 
 # ---------------------------------------------------------------------------
@@ -104,16 +123,18 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                     ) -> dict:
     """Ring-cache tree for the whole model, every layer stacked:
     ``{"layers": {"k", "v"}}`` of ``(layers, batch, S, K, hd)`` (ssm:
-    ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state), on
-    ``device`` (default: the CUDA device)."""
+    ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state;
+    hybrid: ``{"groups": {"rec_0", "rec_1": {"h", "conv"}, "attn":
+    {"k", "v"}}, "tail": {"h", "conv"}}``), on ``device`` (default: the
+    CUDA device)."""
     require_ported(cfg)
     device = resolve_device(device)
-    if cfg.kind == "ssm":
-        one = ssmm.init_ssm_cache(cfg, batch, dtype, device=device)
-    else:
-        S = cache_len_for(cfg, seq_len, serve_window)
-        one = attn.init_cache(cfg, batch, S, dtype, device=device)
-    return _stacked(one, cfg.num_layers)
+    S = cache_len_for(cfg, seq_len, serve_window)
+    return _cache_tree(cfg, {
+        "attn": lambda: attn.init_cache(cfg, batch, S, dtype, device=device),
+        "ssm": lambda: ssmm.init_ssm_cache(cfg, batch, dtype, device=device),
+        "rec": lambda: rgm.init_rglru_cache(cfg, batch, dtype,
+                                            device=device)})
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +194,7 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
     q, k = _rotate(attn._project_q(lp["attn"], cfg, h), k, rotary)
-    out = attn.simple_attention(q, k, v, mode=mode, window=window)
+    out = attn.sequence_attention(q, k, v, mode=mode, window=window)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
     x = x + out @ lp["attn"]["wo"].to(x.dtype)
     h = apply_norm(cfg, lp["ln_mlp"], x)
@@ -220,6 +241,27 @@ def _prefill_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, lengths=None,
     return x + out
 
 
+def _prefill_rec_layer(lp, cfg, x: torch.Tensor, c: dict, *,
+                       lengths=None) -> torch.Tensor:
+    """RG-LRU layer forward that also writes its state slice ``c`` in
+    place: the state at each row's last valid token and the conv
+    context there."""
+    B, T, _ = x.shape
+    out, hs, pre = rgm.rglru_sequence(lp["rec"],
+                                      apply_norm(cfg, lp["ln_rec"], x))
+    x = x + out
+    x = x + mlpm.apply_mlp(lp["mlp"], cfg, apply_norm(cfg, lp["ln_mlp"], x))
+    if lengths is None:
+        c["h"].copy_(hs[:, -1])
+        n = T
+    else:
+        last = torch.clamp(lengths.long() - 1, min=0)
+        c["h"].copy_(hs[torch.arange(B, device=x.device), last])
+        n = lengths
+    c["conv"].copy_(_conv_context(pre, n, cfg.rglru_conv_width))
+    return x
+
+
 def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
             cache_dtype=torch.bfloat16, serve_window: int = 0,
             cache_len: int | None = None, lengths=None,
@@ -238,15 +280,12 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
     int32 vector (a 0-d int32 tensor when ``lengths`` is None).
 
     ``use_kernel`` (ssm kind): the SSD scans through the ``ssd_scan``
-    kernel, one launch per layer.
+    kernel, one launch per layer. Past 2048 tokens the attention layers
+    attend through ``flash_attention``.
     """
     require_ported(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
-    if cfg.kind != "ssm" and T > _MAX_PREFILL:
-        raise NotImplementedError(
-            f"a {T}-token prefill needs the chunked flash_attention, which "
-            "is not ported yet (ROADMAP.md Queue 1 item 6b)")
     device = tokens.device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -254,14 +293,16 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
     x = _embed_tokens(p, cfg, tokens, dtype)
     cache = init_cache_tree(cfg, B, max(cache_len or 0, T), cache_dtype,
                             serve_window, device=device)
-    if cfg.kind == "ssm":
-        for lp, c in _layers(cfg, p, cache):
+    mode, window = attention_mode(cfg, serve_window)
+    rotary = (None if cfg.kind == "ssm" else
+              attn.rotary_angles(cfg, torch.arange(T, device=device)))
+    for kind, lp, c in walk_layers(cfg, p, cache):
+        if kind == "ssm":
             x = _prefill_ssm_layer(lp, cfg, x, c, lengths=lengths,
                                    use_kernel=use_kernel)
-    else:
-        mode, window = _mode_window(cfg, serve_window)
-        rotary = attn.rotary_angles(cfg, torch.arange(T, device=device))
-        for lp, c in _layers(cfg, p, cache):
+        elif kind == "rec":
+            x = _prefill_rec_layer(lp, cfg, x, c, lengths=lengths)
+        else:
             x = _prefill_attn_layer(lp, cfg, x, c, mode=mode, window=window,
                                     rotary=rotary, lengths=lengths)
     x = apply_norm(cfg, p["ln_final"], x)
@@ -279,29 +320,38 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
 # decode step (ring cache)
 # ---------------------------------------------------------------------------
 
-def _ssm_decode_layers(p, cfg, x: torch.Tensor, cache: dict, live=None):
-    """The ssm decode stack, every layer's state updated in place; with
+def _write_state(c: dict, new: dict, live=None) -> None:
+    """A recurrent layer's new state into its cache slice, in place; with
     ``live`` (B,) bool, lanes that are not live keep their state (a slot
     mid-prefill or retired must not have its carried state trampled)."""
-    for lp, c in _layers(cfg, p, cache):
-        y, new = ssmm.decode_ssm(lp["ssm"], cfg,
-                                 apply_norm(cfg, lp["ln"], x), c)
-        for name, v in new.items():
-            if live is not None:
-                v = torch.where(live.reshape((-1,) + (1,) * (v.ndim - 1)),
-                                v, c[name])
-            c[name].copy_(v)
-        x = x + y
-    x = apply_norm(cfg, p["ln_final"], x)
-    return _unembed(p, cfg, x)
+    for name, v in new.items():
+        if live is not None:
+            v = torch.where(live.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                            c[name])
+        c[name].copy_(v)
 
 
-def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend):
-    """The dense decode stack: ``attend(layer attn params, normed x,
-    layer cache)`` -> attention output; then the MLP; then the logits."""
-    for lp, c in _layers(cfg, p, cache):
-        h = apply_norm(cfg, lp["ln_attn"], x)
-        x = x + attend(lp["attn"], h, c)
+def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend,
+                   live=None):
+    """The decode stack, every layer's cache updated in place:
+    ``attend(layer attn params, normed x, layer cache)`` -> the attention
+    output of an attention layer; an ssm or RG-LRU layer's state through
+    :func:`_write_state`; then the logits."""
+    for kind, lp, c in walk_layers(cfg, p, cache):
+        if kind == "ssm":
+            y, new = ssmm.decode_ssm(lp["ssm"], cfg,
+                                     apply_norm(cfg, lp["ln"], x), c)
+            _write_state(c, new, live)
+            x = x + y
+            continue
+        if kind == "rec":
+            y, new = rgm.decode_rglru(lp["rec"], cfg,
+                                      apply_norm(cfg, lp["ln_rec"], x), c)
+            _write_state(c, new, live)
+            x = x + y
+        else:
+            h = apply_norm(cfg, lp["ln_attn"], x)
+            x = x + attend(lp["attn"], h, c)
         h = apply_norm(cfg, lp["ln_mlp"], x)
         x = x + mlpm.apply_mlp(lp["mlp"], cfg, h)
     x = apply_norm(cfg, p["ln_final"], x)
@@ -319,8 +369,8 @@ def decode_step(p, cfg, token: torch.Tensor, cache: dict, pos, *,
     """
     require_ported(cfg)
     x = _embed_tokens(p, cfg, token, dtype)
-    if cfg.kind == "ssm":
-        return _ssm_decode_layers(p, cfg, x, cache), cache
+    if _kv_pool(cfg, cache) is None:
+        return _decode_layers(p, cfg, x, cache, None), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1).expand(token.shape[0])
     w = effective_window(cfg, serve_window)
@@ -345,14 +395,17 @@ def write_cache_slot(cfg, cache: dict, one_cache: dict, slot: int, *,
 
     ``one_cache`` comes from a batch-1 :func:`prefill` with the same
     ``cache_len``/``serve_window`` as the live ``cache``; every leaf
-    (K/V, or the ssm state and conv contexts) is copied along its batch
-    axis (axis 1, after ``layers``), cast to the live leaf's dtype.
-    Optionally also writes ``one_pos`` (0-d or (1,)) into the per-slot ``pos``
-    vector, in place. Returns ``cache`` (and ``pos`` when given).
+    (K/V, or the recurrent state and conv contexts) is copied along its
+    batch axis (axis 1, after the stack's), cast to the live leaf's
+    dtype. Optionally also writes ``one_pos`` (0-d or (1,)) into the
+    per-slot ``pos`` vector, in place. Returns ``cache`` (and ``pos``
+    when given).
     """
     require_ported(cfg)
-    for name, dst in cache["layers"].items():
-        dst[:, slot:slot + 1].copy_(one_cache["layers"][name])
+    for (path, dst), (src_path, src) in zip(tree_items(cache),
+                                            tree_items(one_cache)):
+        assert path == src_path, (path, src_path)
+        dst[:, slot:slot + 1].copy_(src)
     if pos is None:
         return cache
     pos[slot] = torch.as_tensor(one_pos).reshape(())
@@ -370,17 +423,18 @@ def init_paged_cache_tree(cfg, slots: int, num_pages: int, page_size: int,
     """Paged-cache tree: attention K/V leaves become a page pool
     ``(layers, num_pages, page_size, K, hd)`` shared by all slots (page 0
     reserved as the dummy sink), on ``device`` (default: the CUDA
-    device). ``slots`` sizes the per-slot recurrent state of the ssm
-    kind, which has no pages: ``{"layers": {"h", "conv_x", "conv_B",
-    "conv_C"}}`` with ``slots`` lanes."""
+    device). ``slots`` sizes the per-slot recurrent state, which has no
+    pages: the ssm kind's ``{"layers": {"h", "conv_x", "conv_B",
+    "conv_C"}}``, an RG-LRU layer's ``{"h", "conv"}``, each with
+    ``slots`` lanes."""
     _require_paged(cfg)
     device = resolve_device(device)
-    if cfg.kind == "ssm":
-        one = ssmm.init_ssm_cache(cfg, slots, dtype, device=device)
-    else:
-        one = attn.init_paged_cache(cfg, num_pages, page_size, dtype,
-                                    device=device)
-    return _stacked(one, cfg.num_layers)
+    return _cache_tree(cfg, {
+        "attn": lambda: attn.init_paged_cache(cfg, num_pages, page_size,
+                                              dtype, device=device),
+        "ssm": lambda: ssmm.init_ssm_cache(cfg, slots, dtype, device=device),
+        "rec": lambda: rgm.init_rglru_cache(cfg, slots, dtype,
+                                            device=device)})
 
 
 def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
@@ -435,6 +489,27 @@ def _chunk_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
     return x + out
 
 
+def _chunk_rec_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
+                     start: int, valid: int) -> torch.Tensor:
+    """One RG-LRU layer over a prefill chunk with the slot's carried
+    (h, conv) state: the inbound state is folded into the first scan
+    element (h_0 = a_0 h_in + b_0), which continues the recurrence
+    exactly; ``start == 0`` starts fresh. Pad rows (>= valid) run on, and
+    the state written back is the one at row valid - 1."""
+    lane = slice(slot, slot + 1)
+    fresh = start == 0
+    conv0 = None if fresh else c["conv"][lane]
+    out, hs, pre = rgm.rglru_sequence(
+        lp["rec"], apply_norm(cfg, lp["ln_rec"], x), conv0=conv0,
+        h0=None if fresh else c["h"][lane])
+    x = x + out
+    x = x + mlpm.apply_mlp(lp["mlp"], cfg, apply_norm(cfg, lp["ln_mlp"], x))
+    conv1 = _conv_context(pre, valid, cfg.rglru_conv_width, conv0)
+    c["h"][lane].copy_(hs[:, max(valid - 1, 0)])
+    c["conv"][lane].copy_(conv1)
+    return x
+
+
 def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
                   valid: int, page_row, slot: int, *, dtype=torch.float32,
                   serve_window: int = 0, use_kernel: bool = False):
@@ -446,7 +521,8 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
     length when earlier pages came from the prefix trie); valid: the
     number of real tokens in the chunk; page_row: (pages_per_slot,) the
     slot's page ids, a host array (unused by the ssm kind, which has no
-    pages); slot: the recurrent-state lane of the ssm kind. One function
+    pages); slot: the recurrent-state lane of the ssm and RG-LRU
+    layers. One function
     serves single-shot prefill (C >= prompt length) and streamed long
     prompts alike. ``use_kernel`` (ssm kind): a chunk at ``start == 0``
     scans through the ``ssd_scan`` kernel, one launch per layer.
@@ -457,33 +533,36 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
     ticks cannot observe a half-written prefix.
     """
     _require_paged(cfg)
-    start, valid = int(start), int(valid)
-    if cfg.kind == "ssm":
-        x = _embed_tokens(p, cfg, torch.as_tensor(
-            tokens, device=cache["layers"]["h"].device), dtype)
-        for lp, c in _layers(cfg, p, cache):
-            x = _chunk_ssm_layer(lp, cfg, x, c, slot=int(slot), start=start,
-                                 valid=valid, use_kernel=use_kernel)
-        return cache, _last_logits(p, cfg, x, valid)
+    start, valid, slot = int(start), int(valid), int(slot)
     C = tokens.shape[1]
-    device = cache["layers"]["k"].device
-    ps = cache["layers"]["k"].shape[2]
-    row = np.asarray(torch.as_tensor(page_row).cpu(), dtype=np.int64)
-    P = row.shape[0]
-    j = np.arange(C)
-    tgt = start + j                                  # absolute positions
-    pg = row[np.clip(tgt // ps, 0, P - 1)]
-    flat = np.where(j < valid, pg * ps + tgt % ps, j % ps)
-    # one host-to-device copy for both index vectors
-    idx = torch.as_tensor(np.concatenate([flat, row]), device=device)
-    flat_t, row_t = idx[:C], idx[C:]
+    device = tree_leaves(cache)[0].device
+    pool = _kv_pool(cfg, cache)
+    if pool is not None:
+        ps = pool.shape[2]
+        row = np.asarray(torch.as_tensor(page_row).cpu(), dtype=np.int64)
+        P = row.shape[0]
+        j = np.arange(C)
+        tgt = start + j                              # absolute positions
+        pg = row[np.clip(tgt // ps, 0, P - 1)]
+        flat = np.where(j < valid, pg * ps + tgt % ps, j % ps)
+        # one host-to-device copy for both index vectors
+        idx = torch.as_tensor(np.concatenate([flat, row]), device=device)
+        flat_t, row_t = idx[:C], idx[C:]
+        rotary = attn.rotary_angles(cfg,
+                                    start + torch.arange(C, device=device))
     x = _embed_tokens(p, cfg, torch.as_tensor(tokens, device=device), dtype)
-    mode, window = _mode_window(cfg, serve_window)
-    rotary = attn.rotary_angles(cfg, start + torch.arange(C, device=device))
-    for lp, c in _layers(cfg, p, cache):
-        x = _chunk_attn_layer(lp, cfg, x, c, mode=mode, window=window,
-                              start=start, valid=valid, flat=flat_t,
-                              row=row_t, rotary=rotary)
+    mode, window = attention_mode(cfg, serve_window)
+    for kind, lp, c in walk_layers(cfg, p, cache):
+        if kind == "ssm":
+            x = _chunk_ssm_layer(lp, cfg, x, c, slot=slot, start=start,
+                                 valid=valid, use_kernel=use_kernel)
+        elif kind == "rec":
+            x = _chunk_rec_layer(lp, cfg, x, c, slot=slot, start=start,
+                                 valid=valid)
+        else:
+            x = _chunk_attn_layer(lp, cfg, x, c, mode=mode, window=window,
+                                  start=start, valid=valid, flat=flat_t,
+                                  row=row_t, rotary=rotary)
     return cache, _last_logits(p, cfg, x, valid)
 
 
@@ -503,20 +582,23 @@ def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
     token: (B, 1); cache: tree from init_paged_cache_tree; pos: (B,)
     int32; page_map: (B, pages_per_slot) int32 (dummy rows for inactive
     slots), all on the cache's device; live: (B,) bool — it gates the
-    ssm kind's recurrent-state updates; a non-live lane's attention
-    write lands in the dummy page through its page-map row.
+    recurrent-state updates (ssm and RG-LRU layers); a non-live lane's
+    attention write lands in the dummy page through its page-map row.
     ``use_kernel``: attention through the ``paged_decode`` wrapper, one
-    launch per layer (the ssm kind has no attention and ignores it).
+    launch per attention layer (the ssm kind has no attention and
+    ignores it; the hybrid kind's attention layers mask the window band
+    of ``attention_window``).
     Returns (logits, cache).
     """
     _require_paged(cfg)
     x = _embed_tokens(p, cfg, token, dtype)
-    if cfg.kind == "ssm":
-        return _ssm_decode_layers(p, cfg, x, cache, live=live), cache
+    pool = _kv_pool(cfg, cache)
+    if pool is None:
+        return _decode_layers(p, cfg, x, cache, None, live=live), cache
     pos = pos.reshape(-1).expand(token.shape[0])
     w = effective_window(cfg, serve_window)
     # the write offsets and the RoPE angles, once for all layers
-    flat = attn.page_flat_index(page_map, pos, cache["layers"]["k"].shape[2])
+    flat = attn.page_flat_index(page_map, pos, pool.shape[2])
     rotary = attn.rotary_angles(cfg, pos[:, None])
 
     def attend(ap, h, c):
@@ -524,7 +606,7 @@ def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
             ap, cfg, h, c, pos, page_map, window=w, use_kernel=use_kernel,
             flat=flat, rotary=rotary)[0]
 
-    return _decode_layers(p, cfg, x, cache, attend), cache
+    return _decode_layers(p, cfg, x, cache, attend, live=live), cache
 
 
 __all__ = ["PAGED_KINDS", "cache_len_for", "decode_step",

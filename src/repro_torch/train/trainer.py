@@ -50,6 +50,7 @@ from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.registry import ModelApi, build_model
+from repro_torch.models.transformer import require_ported
 from repro_torch.obs.sink import make_obs
 from repro_torch.obs.telemetry import emit_comm
 from repro_torch.rounds import RoundProgram, RoundResolver
@@ -100,11 +101,7 @@ class ScaleTrainer:
                  hierarchy: Optional[HierarchyConfig] = None,
                  program: Optional[RoundProgram] = None,
                  device: DeviceLike = None):
-        if cfg.kind not in ("dense", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name}: scale mode runs the dense and ssm kinds; the "
-                f"{cfg.kind!r} kind is not ported yet (ROADMAP.md Queue 1 "
-                "item 6b)")
+        require_ported(cfg)
         if program is None:
             program = RoundProgram(dynamics=dynamics, hierarchy=hierarchy)
         elif dynamics is not None or hierarchy is not None:

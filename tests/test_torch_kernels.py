@@ -162,6 +162,10 @@ PAGED_CASES = {
     # gemma-2b-like MQA and starcoder2-3b-like GQA past its 4096 window
     "gemma-mqa": (4, 1, 8, 256, 16, 8, 33, 0, [3, 60, None, 127]),
     "starcoder-window": (2, 2, 12, 128, 16, 320, 641, 4096, [4500, 5119]),
+    # the hybrid kind's serve shape: recurrentgemma-9b's MQA (G 16, hd
+    # 256) under its 2,048 window, slots before, at and past the window
+    "hybrid-serve": (8, 1, 16, 256, 16, 196, 1569, 2048,
+                     [700, 1500, 2047, 2048, 2300, 2600, 3000, 3135]),
 }
 # the kernel's split at its boundaries: 4 slots of 12 pages of 16 (192
 # positions), hd 64, so a chunk of 64 positions (four pages) in f32 and
@@ -206,7 +210,8 @@ def _paged_inputs(case, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
-    for case in ("reference-window", "dummy-row-window", "gemma-mqa"):
+    for case in ("reference-window", "dummy-row-window", "gemma-mqa",
+                 "hybrid-serve"):
         *args, window = _paged_inputs(case, dtype, "cpu")
         before = paged_decode.launches
         out = paged_decode(*args, window=window)
@@ -223,6 +228,7 @@ def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
     (128, 16, 320, torch.bfloat16, 64, 80),
     (256, 16, 8, torch.float32, 16, 8),        # gemma-mqa: one page
     (256, 16, 8, torch.bfloat16, 32, 4),
+    (256, 16, 196, torch.float32, 16, 196),    # hybrid-serve
     (8, 4, 3, torch.float32, 12, 1),           # reference: the whole slot
     (64, 48, 4, torch.float32, 48, 4),         # whole pages of 48
     (64, 100, 3, torch.float32, 64, 5),        # a page above a chunk

@@ -7,7 +7,8 @@ The step configuration is ``tests/test_fused_interval.py``'s: a 2-layer
 qwen cut to d 64 (its leaves are not lane-aligned), R 4 in clusters of
 2, tau 4, consensus every 2, Γ 2, lr 0.05. The helpers take ``arch``:
 ``tests/test_torch_scale_ssm.py`` runs the same steps on a reduced
-mamba2.
+mamba2, ``tests/test_torch_scale_hybrid.py`` on a reduced
+recurrentgemma.
 
 Tolerances, and why:
 - token streams, flat-buffer offsets and padding, round-trips and the
@@ -23,6 +24,7 @@ Tolerances, and why:
   1e-6 in float32 and 1e-2 in bfloat16, ``tests/test_kernels.py``'s.
 """
 import _torch_threads  # noqa: F401  (torch threads per xdist worker)
+import dataclasses
 import re
 
 import jax
@@ -55,11 +57,17 @@ from repro_torch.rounds import RoundProgram, RoundResolver
 from repro_torch.train import PrefetchLoader, ScaleTrainer, TrainerConfig
 
 _KW = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128)
+ARCH_HYBRID = "recurrentgemma-9b"
 _JCFG = j_get_arch("qwen1.5-0.5b").reduced(**_KW)
 _CFG = get_arch("qwen1.5-0.5b").reduced(**_KW)
 _ARCHS = {"qwen": (_JCFG, _CFG),
           "mamba2": (j_get_arch("mamba2-370m").reduced(**_KW),
-                     get_arch("mamba2-370m").reduced(**_KW))}
+                     get_arch("mamba2-370m").reduced(**_KW)),
+          # one (rec, rec, attn) group and a tail of two, the window
+          # below the 16-token sequences
+          "hybrid": tuple(dataclasses.replace(
+              get(ARCH_HYBRID).reduced(**dict(_KW, num_layers=5)),
+              attention_window=8) for get in (j_get_arch, get_arch))}
 _R, _TAU = 4, 4
 
 
@@ -477,10 +485,11 @@ def test_prefetch_loader_surfaces_worker_error():
 def test_trainer_refuses_unported_options():
     # checkpoints and the observability sink are ported
     # (tests/test_torch_ckpt.py, tests/test_torch_obs.py); a kind other
-    # than dense or ssm is not, and the port's step always updates the
-    # parameters in place (the reference's donate=True)
+    # than dense, ssm or hybrid is not (whisper's audio kind: item 6c),
+    # and the port's step always updates the parameters in place (the
+    # reference's donate=True)
     sc = _scale(dist.TTHFScaleConfig)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
         ScaleTrainer(get_arch("whisper-small").reduced(**_KW), sc,
                      TrainerConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown dtype"):

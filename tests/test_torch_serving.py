@@ -633,7 +633,7 @@ def test_entry_points_refuse_to_run_quietly_on_the_cpu(monkeypatch):
 
 
 def test_non_dense_kinds_and_unported_flags_raise():
-    for arch, err in (("recurrentgemma-9b", NotImplementedError),
+    for arch, err in (("llama4-maverick-400b-a17b", NotImplementedError),
                       ("llama4-scout-17b-a16e", NotImplementedError),
                       ("whisper-small", ValueError)):
         model = build_model(get_arch(arch).reduced())

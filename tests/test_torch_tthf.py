@@ -159,9 +159,10 @@ def test_entry_points_refuse_quietly_running_elsewhere(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TTHFTrainer(*args)
-    # scale mode runs the dense and ssm kinds; the others are still to port
+    # scale mode runs the dense, ssm and hybrid kinds; the others are
+    # still to port
     with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        train_cli.main(["--mode", "scale", "--arch", "recurrentgemma-9b",
+        train_cli.main(["--mode", "scale", "--arch", "llama4-scout-17b-a16e",
                         "--reduced", "--device", "cpu"])
     # --scenario, --hierarchy and --control run in both modes; the CLI
     # refuses only what the reference rejects: control with a hierarchy,
