@@ -12,10 +12,13 @@ under the four fog presets and under the two control policies, TT-HF as
 the scale-mode sync strategy on the full-size qwen1.5-0.5b (24 layers, d
 1024, vocabulary 151,936), the same at 8 replicas under a fog tree and
 under the control plane (4 layers), on mamba2-370m (12 of its 48 Mamba-2
-layers, d 1024, 32 SSD heads of 64, state 128) and on recurrentgemma-9b
-at full width (5 of its 38 layers), paged continuous-batching serving of
-qwen1.5-0.5b and of the full recurrentgemma-9b (RG-LRU and local
-attention over a 2,048-token window), continuous-batching serving of
+layers, d 1024, 32 SSD heads of 64, state 128), on recurrentgemma-9b
+at full width (5 of its 38 layers) and on llama4-maverick's MoE layout
+at full width (one {dense, moe} group, 8 experts), paged
+continuous-batching serving of qwen1.5-0.5b, of the full
+recurrentgemma-9b (RG-LRU and local attention over a 2,048-token
+window) and of llama4-scout at full width (4 of its 48 layers, 16
+experts, top-1 routing), continuous-batching serving of
 mamba2-370m, and training and prefill past 2,048 tokens through the
 chunked ``flash_attention`` — and holds every kernel of those paths
 against its plain PyTorch version; then the sim, scale and serve paths
@@ -48,11 +51,13 @@ caught):
              all-dummy rows with pos past their pages, the serve path's
              shape, a gemma-2b-like MQA, a starcoder2-3b-like GQA past
              its 4096 window in 160 splits, and the split's boundaries),
-             and the hybrid's serve shape (8 slots, K 1, G 16, hd 256,
-             window 2,048, slots before, at and past the window), f32
-             and bf16 pools, atol 1e-5, a second launch bitwise equal to
-             the first; timed at the serve path's shape, at the hybrid's
-             and with all 8 slots at position 639, its inputs rotated
+             the hybrid's serve shape (8 slots, K 1, G 16, hd 256,
+             window 2,048, slots before, at and past the window) and the
+             moe kind's (llama4-scout: 8 slots, K 8, G 5, hd 128, 36
+             pages of 16), f32 and bf16 pools, atol 1e-5, a second launch
+             bitwise equal to the first; timed at the serve path's shape,
+             at the hybrid's, at scout's and with all 8 slots at position
+             639, its inputs rotated
              over copies larger than the L2, beside the page gather plus
              ``scaled_dot_product_attention`` (two calls). ``ssd_scan``
              at the shapes of tests/test_kernels.py (ragged T = 130
@@ -142,6 +147,17 @@ caught):
              (loss rtol 1e-4, the same ledger, the global model within
              atol 1e-5). Four replicas, or the full depth at one, do not
              fit the card's 80 GB with the gradient and a copy.
+4e. scale-moe — ``ScaleTrainer`` on llama4-maverick's layout (one
+             {dense_0, moe} group, depth 2) at full d_model, d_ff and
+             heads, its experts cut to 8 and its vocabulary to 32,768
+             (1,593,902,080 parameters a replica; a full-width replica
+             is 4.15 B at least, and two do not fit with the carrier's
+             copies): 2 replicas in one cluster of 2, τ 20, consensus
+             every 5, Γ 2, batch 4 x 128, the loss with the routers'
+             aux terms; after a warm-up, 2 fused intervals (8
+             ``fused_consensus_sgd`` launches), the per-leaf step held
+             to them bitwise (losses, ledger, the global model), and the
+             trained model's aux terms printed.
 5. serve   — ``PagedContinuousScheduler`` on qwen1.5-0.5b at full size
              (random weights from seed 0, f32 weights and cache) through
              the serve CLI's trace (``launch/serve.py::make_arrivals``:
@@ -196,6 +212,25 @@ caught):
              relative L2 1e-4); a one-shot ring prefill of 3,000 tokens
              (through flash) against 256-token paged chunks (last logits
              within 1e-4 of max |logit|).
+5d. serve-moe — the serve CLI's paged scheduler on llama4-scout at full
+             width and depth 4 (``--arch llama4-scout-17b-a16e
+             --scheduler paged --batch 8 --prompt-len 512 --gen 64
+             --requests 16 --prefill-chunk 256 --prefix-template 128
+             --temperature 0``, random f32 weights from seed 0; 16
+             experts, top-1, the config's capacity factor 1.25), with the
+             launch counter reset just before (``paged_decode`` once per
+             layer per decode step at the ``scout-serve`` shape), every
+             stat held to the same trace on the CPU at reduced width, the
+             template's prefix pages shared; the plain gather through the
+             same scheduler, chunks and slots (the same routing; every
+             stat equal, greedy tokens by the margin rule of phase 6);
+             teacher-forced logits of 8 decode steps of the longest and
+             the shortest prompt, kernel against plain gather, within
+             1e-4 of max |logit|; the routers' drop share in a prefill
+             chunk and in a decode step printed. Tokens are not compared
+             across schedulers: a decode step routes all its slots as one
+             group at capacity 1, so another batching drops other tokens,
+             as the reference does.
 7. forward-ssm — ``ModelApi.forward`` of the full-size mamba2-370m at
              batch 8 x 1024 tokens, f32, through the kernel against the
              plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
@@ -287,6 +322,23 @@ SERVE_HYBRID_ARGV = ["--arch", "recurrentgemma-9b", "--scheduler", "paged",
 # two-layer tail): 2,174,906,368 parameters a replica
 SCALE_HYBRID_LAYERS = 5
 SCALE_HYBRID_P = 2_174_906_368
+# [serve-moe]: llama4-scout at full width and depth 4 of its 48 layers
+# (10,376,033,280 parameters, 41.5 GB in f32; the 48 layers are 407 GB)
+# through the serve CLI's paged trace at the config's capacity factor
+SERVE_MOE_LAYERS = 4
+SERVE_MOE_P = 10_376_033_280
+SERVE_MOE_ARGV = ["--arch", "llama4-scout-17b-a16e", "--scheduler", "paged",
+                  "--batch", "8", "--prompt-len", "512", "--gen", "64",
+                  "--requests", "16", "--prefill-chunk", "256",
+                  "--prefix-template", "128", "--temperature", "0"]
+# [scale-moe]: llama4-maverick's layout (one {dense_0, moe} group, depth
+# 2) at full d_model, d_ff and heads, its experts cut from 128 to 8 and
+# its vocabulary from 202,048 to 32,768: 1,593,902,080 parameters a
+# replica (a full-width replica is 4.15 B at least; two of them and
+# some 4.5 copies of the (2, P) carrier exceed the 80 GB)
+SCALE_MOE_EXPERTS = 8
+SCALE_MOE_VOCAB = 32_768
+SCALE_MOE_P = 1_593_902_080
 # [flash]: qwen1.5-0.5b at full width and depth on one 4,096-token
 # sequence; a one-shot prefill of 3,000 tokens
 FLASH_T = 4096
@@ -317,6 +369,11 @@ PAGED_CASES = {
     # band, 196 pages of 16 a slot; slots before, at and past the window
     "hybrid-serve": (8, 1, 16, 256, 16, 196, 1569, 2048,
                      [700, 1500, 2047, 2048, 2300, 2600, 3000, 3135]),
+    # the moe kind's serve shape ([serve-moe]'s trace): llama4-scout's GQA
+    # (K 8, G 5, hd 128), 8 slots of 36 pages (512-token prompts and 64
+    # new tokens), 289 pages
+    "scout-serve": (8, 8, 5, 128, 16, 36, 289, 0,
+                    [250, 296, 342, 388, 434, 480, 526, 575]),
 }
 SPLIT_CHUNK = 64
 # timed only: the serve shape with every slot at its last position, so no
@@ -1750,16 +1807,19 @@ def phase_paged_kernel() -> dict:
                 f"{dt} max_abs_err={err:.3e} (tol {PAGED_TOL})")
 
     # the serve path's shape; then every slot at its last position; then
-    # the hybrid's serve shape with its window band
+    # the hybrid's serve shape with its window band; then the moe kind's
     numbers = time_paged(PAGED_CASES["qwen-serve"], "qwen-serve")
     numbers["at_balanced_shape"] = time_paged(PAGED_BALANCED,
                                               "qwen-balanced")
     numbers["at_hybrid_shape"] = time_paged(PAGED_CASES["hybrid-serve"],
                                             "hybrid-serve")
+    numbers["at_scout_shape"] = time_paged(PAGED_CASES["scout-serve"],
+                                           "scout-serve")
     numbers["max_abs_err_all_shapes"] = {
         "float32": max(worst["float32"], numbers["max_abs_err"],
                        numbers["at_balanced_shape"]["max_abs_err"],
-                       numbers["at_hybrid_shape"]["max_abs_err"]),
+                       numbers["at_hybrid_shape"]["max_abs_err"],
+                       numbers["at_scout_shape"]["max_abs_err"]),
         "bfloat16": worst["bfloat16"]}
     return numbers
 
@@ -2270,12 +2330,19 @@ def record_margins(cls) -> tuple:
     return record, lambda: setattr(cls, "_sample", original)
 
 
-def check_tokens(name: str, got: dict, ref: dict, margins: dict) -> list:
+def check_tokens(name: str, got: dict, ref: dict, margins: dict,
+                 routed_apart: int | None = None,
+                 calls_at: dict | None = None) -> list:
     """Every request's greedy tokens equal the plain run's, except that a
     request may part from it at a step where the plain run's top two
-    logits are within LOGIT_TOL of its max |logit| (after that step its
-    tokens follow other inputs and are not compared). Returns the
-    partings as (rid, index, margin / max |logit|)."""
+    logits are within LOGIT_TOL of its max |logit|, or (the moe kind:
+    ``routed_apart``, the first router call at which the two runs routed
+    a token apart, a near tie that :func:`first_routing_split` checked,
+    and ``calls_at``, the router calls made before each sampling) after
+    the two runs' routing parted: a decode step routes all its slots as
+    one group, so one token's expert moves another's drop. After that
+    step a request's tokens follow other inputs and are not compared.
+    Returns the partings as (rid, index, margin / max |logit|)."""
     partings = []
     for rid, want in ref.items():
         have = got[rid]
@@ -2285,11 +2352,68 @@ def check_tokens(name: str, got: dict, ref: dict, margins: dict) -> list:
         if k is None:
             continue
         margin, biggest = margins[(rid, k)]
-        assert margin <= LOGIT_TOL * biggest, (
+        routed = routed_apart is not None and routed_apart < calls_at[(rid,
+                                                                       k)]
+        assert margin <= LOGIT_TOL * biggest or routed, (
             f"{name}: request {rid} diverged at token {k}, where the plain "
-            f"run's top-two margin {margin} exceeds {LOGIT_TOL} x {biggest}")
+            f"run's top-two margin {margin} exceeds {LOGIT_TOL} x {biggest}"
+            f" and the two runs' routing had not parted")
         partings.append((rid, k, margin / biggest))
     return partings
+
+
+def record_routing(cls) -> tuple:
+    """Patch ``apply_moe`` and ``cls._sample`` to record every router
+    call's expert per routed token and its top-two margin over max
+    |router logit| (one host copy a call), and, at every sampling, the
+    number of router calls made so far for each emitting request.
+    Returns ([(experts, margins)] a call, {(rid, index): calls}, a
+    function that removes both patches)."""
+    import torch
+    from repro_torch.models import moe
+    calls, calls_at = [], {}
+    apply, sample = moe.apply_moe, cls._sample
+
+    def spy(p, cfg, x, *a, token_mask=None, **kw):
+        logits = (x @ p["router"].to(x.dtype)).float()
+        top = torch.topk(logits, 2, dim=-1).values
+        ratio = (top[..., 0] - top[..., 1]) / logits.abs().amax(-1)
+        eid = torch.argmax(logits, -1)
+        if token_mask is not None:
+            eid, ratio = eid[token_mask], ratio[token_mask]
+        calls.append((eid.cpu().numpy().ravel(),
+                      ratio.cpu().numpy().ravel()))
+        return apply(p, cfg, x, *a, token_mask=token_mask, **kw)
+
+    def patched(self, logits):
+        for r in self.active:
+            if r is not None and not r.done:
+                calls_at[(r.rid, len(r.out_tokens))] = len(calls)
+        return sample(self, logits)
+
+    moe.apply_moe, cls._sample = spy, patched
+
+    def unpatch():
+        moe.apply_moe, cls._sample = apply, sample
+    return calls, calls_at, unpatch
+
+
+def first_routing_split(got: list, ref: list):
+    """The first router call at which two runs' records of
+    :func:`record_routing` route a token to another expert, or None;
+    it must be a near tie: that token's top two router logits within
+    LOGIT_TOL of their max |logit| in ``ref``'s run. Returns (call,
+    token, ``ref``'s margin ratio) or None."""
+    assert len(got) == len(ref), (len(got), len(ref))
+    for i, ((e1, _), (e2, r2)) in enumerate(zip(got, ref)):
+        apart = np.flatnonzero(e1 != e2)
+        if apart.size:
+            t = int(apart[np.argmin(r2[apart])])
+            assert r2[t] <= LOGIT_TOL, (
+                f"router call {i}: token {t} routed apart with a top-two "
+                f"margin of {r2[t]} of max |router logit| (tol {LOGIT_TOL})")
+            return i, t, float(r2[t])
+    return None
 
 
 def phase_serve_ssm(profile: bool = False) -> int:
@@ -2798,6 +2922,330 @@ def phase_scale_hybrid() -> int:
     return launches
 
 
+def moe_aux_spy():
+    """Record the aux values (load_balance, router_z, drop_frac) of every
+    ``apply_moe`` call, one host copy each. Returns (the records, a
+    function that removes the patch)."""
+    from repro_torch.models import moe
+    seen = []
+    original = moe.apply_moe
+
+    def spy(*a, **kw):
+        y, aux = original(*a, **kw)
+        seen.append({k: float(v) for k, v in aux.items()})
+        return y, aux
+
+    moe.apply_moe = spy
+    return seen, lambda: setattr(moe, "apply_moe", original)
+
+
+def phase_serve_moe(profile: bool = False) -> int:
+    """The serve CLI's paged scheduler on llama4-scout at full width and
+    depth 4 (16 experts, top-1, capacity factor 1.25; random f32 weights
+    from seed 0): the main path (``paged_decode`` in every layer of every
+    decode step, at the ``scout-serve`` shape), the plain gather held to
+    it through the same scheduler, chunks and slots (so the same
+    routing), teacher-forced logits, the trace's counts held to a CPU run
+    at reduced width, and the routers' drop share in a prefill chunk and
+    a decode step. Returns paged_decode's launches in the main path's
+    run."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.serving import (
+        PageTable, PagedContinuousScheduler, pages_per_slot)
+
+    args = serve_cli.parse_args(SERVE_MOE_ARGV)
+    cfg = dataclasses.replace(get_arch(args.arch),
+                              num_layers=SERVE_MOE_LAYERS)
+    assert (cfg.kind, cfg.moe_every, cfg.moe_num_experts, cfg.d_model,
+            cfg.d_ff, cfg.moe_capacity_factor) == \
+        ("moe", 1, 16, 5120, 8192, 1.25), cfg
+    model = build_model(cfg)
+    device = torch.device("cuda")
+    params = serve_cli.init_params(model, args, device)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    assert n_params == SERVE_MOE_P, n_params
+
+    def run(argv=(), **over):
+        a = serve_cli.parse_args(SERVE_MOE_ARGV + list(argv))
+        return serve_cli.run_scheduler_trace(a, cfg, model, device, params,
+                                             **over)
+
+    # the trace's counts at reduced width on the CPU (they follow from the
+    # trace, not from the weights)
+    small = get_arch(args.arch).reduced()
+    cpu_sched, cpu_stats, _, cpu_wall = serve_cli.run_scheduler_trace(
+        serve_cli.parse_args(SERVE_MOE_ARGV + ["--reduced"]), small,
+        build_model(small), torch.device("cpu"))
+    log(f"[serve-moe] the trace on the CPU at reduced width: "
+        f"{cpu_stats.prefills} prefills, {cpu_stats.decode_steps} decode "
+        f"steps, {cpu_stats.tokens_generated} tokens ({cpu_wall:.1f} s)")
+
+    # warm-up: allocator, cuBLAS handles at these widths
+    _, st, _, wall = run(["--requests", "1", "--gen", "2", "--prompt-len",
+                          "256"])
+    log(f"[serve-moe] warm-up: 1 request, {st.decode_steps} decode steps "
+        f"in {wall:.3f} s")
+
+    # the main path: the paged scheduler with the kernel (auto-on)
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode.launches = 0
+    sched, stats, arrivals, wall = run()
+    launches = paged_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    main = trace_stats(stats, sched)
+    B, K, G, hd, ps, P, N = PAGED_CASES["scout-serve"][:7]
+    assert (sched.slots, cfg.num_kv_heads, cfg.num_heads // K, cfg.head_dim,
+            sched.page_size, sched.pages_slot, sched.cache_pages) == \
+        (B, K, G, hd, ps, P, N), "the scout-serve case left the path"
+    assert sched.paged_kernel and stats.requests_done == args.requests
+    assert main == trace_stats(cpu_stats, cpu_sched), "the counts moved"
+    assert launches == cfg.num_layers * stats.decode_steps, launches
+    assert sched.table.num_free == sched.cache_pages - 1   # no page leaked
+    assert sched.prefix_pages_hit > 0                      # the template
+    assert all(len(r.out_tokens) == r.budget for _, r in arrivals)
+    log(f"[serve-moe] llama4-scout depth {cfg.num_layers} paged (kernel): "
+        f"{n_params} parameters, {stats.requests_done} requests, "
+        f"{stats.prefills} prefills in {sum(main['prefill_chunks'])} "
+        f"chunks, prefix pages hit {sched.prefix_pages_hit} of "
+        f"{sched.prefix_pages_possible}, {stats.decode_steps} decode "
+        f"steps, {stats.tokens_generated} tokens in {wall:.3f} s = "
+        f"{stats.tokens_generated / wall:.1f} tokens/s, "
+        f"{stats.decode_steps / wall:.2f} decode steps/s, util "
+        f"{stats.utilization:.3f}; paged_decode launches {launches} = "
+        f"{cfg.num_layers} x {stats.decode_steps}, max_memory_allocated "
+        f"{peak} B, no page leaked; every stat and record equal to the "
+        f"CPU run")
+    kernel_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    del sched
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: run()[3], "serve-moe trace (paged)")
+
+    # the same trace through the plain gather, recording its logits'
+    # margins and its routing; then the kernel's trace again, recording
+    # its routing (its tokens must be the timed run's)
+    paged_decode.launches = 0
+    margins, unpatch = record_margins(PagedContinuousScheduler)
+    plain_route, calls_at, unpatch_route = record_routing(
+        PagedContinuousScheduler)
+    try:
+        sched, stats, arrivals, wall2 = run(paged_kernel=False)
+    finally:
+        unpatch_route()
+        unpatch()
+    assert paged_decode.launches == 0
+    assert trace_stats(stats, sched) == main
+    plain_tokens = {r.rid: list(r.out_tokens) for _, r in arrivals}
+    del sched
+    kernel_route, _, unpatch_route = record_routing(PagedContinuousScheduler)
+    try:
+        sched, stats, arrivals, _ = run()
+    finally:
+        unpatch_route()
+    assert {r.rid: list(r.out_tokens) for _, r in arrivals} == \
+        kernel_tokens, "two kernel runs gave other tokens"
+    split = first_routing_split(kernel_route, plain_route)
+    parted = check_tokens("kernel", kernel_tokens, plain_tokens, margins,
+                          None if split is None else split[0], calls_at)
+    closest = min(m / b for m, b in margins.values())
+    near = min(float(r.min()) for _, r in plain_route)
+    log(f"[serve-moe] plain gather: {wall2:.3f} s = "
+        f"{stats.tokens_generated / wall2:.1f} tokens/s (margins and "
+        f"routing recorded), every stat and record equal to the kernel "
+        f"run; {len(plain_tokens) - len(parted)}/{len(plain_tokens)} "
+        f"requests with identical greedy tokens, partings (rid, token, "
+        f"margin / max|logit|) {parted}; smallest top-two margin "
+        f"{closest:.3e} of max |logit| (tol {LOGIT_TOL}); {len(plain_route)} "
+        f"router calls, the routing of the kernel's second run (its tokens "
+        f"the first's) against the plain run's: first routed apart at "
+        f"(call, token, margin / max |router logit|) {split}; the closest "
+        f"router top two {near:.3e} of max |router logit|")
+    del sched
+    torch.cuda.empty_cache()
+
+    # teacher forcing: the longest and the shortest prompt prefilled in
+    # chunks of 256 (the routers' aux recorded in the first chunk), then
+    # 8 decode steps fed the same tokens through the kernel and through
+    # the plain gather (the 2 slots one routing group, capacity 1)
+    ps, chunk, steps = args.page_size, args.prefill_chunk, 8
+    order = sorted(arrivals, key=lambda a: len(a[1].prompt))
+    reqs = [order[-1][1], order[0][1]]
+    P = pages_per_slot(args.prompt_len + args.gen, ps)
+    cache = model.init_paged_cache(2, 2 * P + 1, ps, torch.float32,
+                                   device="cuda")
+    table = PageTable(2 * P + 1, ps)
+    page_map = np.zeros((2, P), np.int32)
+    prefill_aux, unpatch = moe_aux_spy()
+    try:
+        for b, req in enumerate(reqs):
+            plen = len(req.prompt)
+            pages = table.alloc(-(-(plen + steps) // ps))
+            page_map[b, :len(pages)] = pages
+            padded = np.zeros((1, -(-plen // chunk) * chunk), np.int32)
+            padded[0, :plen] = req.prompt
+            for start in range(0, plen, chunk):
+                toks = torch.from_numpy(padded[:, start:start + chunk]).cuda()
+                model.prefill_chunk(params, cache, toks, start,
+                                    min(chunk, plen - start), page_map[b],
+                                    b, dtype=torch.float32)
+    finally:
+        unpatch()
+    first_chunk = prefill_aux[:cfg.num_layers]
+    cache_plain = tree_map(lambda t: t.clone(), cache)
+    feed = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(steps, 2, 1)).astype(np.int32)
+    pm = torch.from_numpy(page_map).cuda()
+    live = torch.ones(2, dtype=torch.bool, device="cuda")
+    pos = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32,
+                       device="cuda")
+    tf_err = tf_max = 0.0
+    decode_aux = []
+    for i in range(steps):
+        tok = torch.from_numpy(feed[i]).cuda()
+        if i == 0:
+            decode_aux, unpatch = moe_aux_spy()
+        try:
+            lk, _ = model.decode_step_paged(params, tok, cache, pos, pm,
+                                            live, dtype=torch.float32,
+                                            use_kernel=True)
+        finally:
+            if i == 0:
+                unpatch()
+        lp, _ = model.decode_step_paged(params, tok, cache_plain, pos, pm,
+                                        live, dtype=torch.float32,
+                                        use_kernel=False)
+        assert torch.isfinite(lk).all()
+        tf_err = max(tf_err, float((lk - lp).abs().max()))
+        tf_max = max(tf_max, float(lp.abs().max()))
+        pos = pos + 1
+    assert tf_err <= LOGIT_TOL * tf_max, (tf_err, tf_max)
+    assert len(first_chunk) == len(decode_aux) == cfg.num_layers
+
+    def mean(recs, k):
+        return sum(r[k] for r in recs) / len(recs)
+    log(f"[serve-moe] teacher forcing, prompts of "
+        f"{[len(r.prompt) for r in reqs]} tokens in chunks of {chunk}, "
+        f"{steps} decode steps: logits max |kernel - plain| {tf_err:.3e} "
+        f"= {tf_err / tf_max:.3e} of max |logit| {tf_max:.3f} (tol "
+        f"{LOGIT_TOL}); the routers over the {cfg.num_layers} layers: "
+        f"drop_frac {mean(first_chunk, 'drop_frac'):.4f} in the first "
+        f"prefill chunk ({min(chunk, len(reqs[0].prompt))} tokens, "
+        f"capacity "
+        f"{max(1, round(chunk * cfg.moe_capacity_factor / cfg.moe_num_experts))}"
+        f" "
+        f"an expert), {mean(decode_aux, 'drop_frac'):.4f} in a decode "
+        f"step (2 slots, capacity 1); load_balance "
+        f"{mean(first_chunk, 'load_balance'):.4f}, router_z "
+        f"{mean(first_chunk, 'router_z'):.4f} in the chunk")
+    del cache, cache_plain, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_scale_moe(profile: bool = False) -> int:
+    """ScaleTrainer on llama4-maverick's layout (one {dense_0, moe} group,
+    depth 2) at full d_model, d_ff and heads, 8 experts and a vocabulary
+    of 32,768 (1,593,902,080 parameters a replica): 2 replicas in one
+    cluster of 2, τ 20, consensus every 5, Γ 2, batch 4 x 128, f32, the
+    loss with both aux terms. After a warm-up, 2 fused intervals through
+    ``fused_consensus_sgd`` (4 launches an interval) and the per-leaf
+    step held to them bitwise (losses, ledger, every parameter of the
+    global model); the aux terms of the trained model printed. Returns
+    the fused run's launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import TTHFScaleConfig
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.kernels.fused_sgd import fused_sgd
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import group_layout
+
+    cfg = dataclasses.replace(get_arch("llama4-maverick-400b-a17b"),
+                              num_layers=2,
+                              moe_num_experts=SCALE_MOE_EXPERTS,
+                              vocab_size=SCALE_MOE_VOCAB)
+    assert group_layout(cfg)[1:] == (1, 0) and cfg.d_model == 5120, cfg
+    scale = TTHFScaleConfig(replicas=2, cluster_size=2, tau=20,
+                            consensus_every=5, gamma_d2d=2, lr=SCALE_LR)
+    batch, seq, intervals = 4, 128, 2
+    tokens = intervals * scale.tau * scale.replicas * batch * seq
+    model = build_model(cfg)
+    w0 = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    def run(fused: bool, n: int, name: str):
+        return scale_run(cfg, scale, fused, n, name, batch=batch, seq=seq,
+                         weights=w0)
+
+    # warm-up: allocator, cuBLAS handles, the kernel's first load
+    tr, losses, wall, _ = run(True, 1, "moe_warmup")
+    log(f"[scale-moe] warm-up: 1 fused interval in {wall:.3f} s, loss "
+        f"{losses}")
+    del tr
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_consensus_sgd.launches = consensus_mix.launches = 0
+    fused_sgd.launches = 0
+    tr, losses, wall, ledger = run(True, intervals, "moe_fused")
+    launches = fused_consensus_sgd.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert tr._spec.total == SCALE_MOE_P, tr._spec.total
+    assert np.isfinite(losses).all() and len(losses) == intervals, losses
+    assert launches == intervals * scale.tau // scale.consensus_every, \
+        launches
+    assert consensus_mix.launches == fused_sgd.launches == 0
+    spec = tr._spec
+    g_fused = tr.params[0].clone()
+    log(f"[scale-moe] maverick layout, {cfg.moe_num_experts} experts, "
+        f"vocabulary {cfg.vocab_size} ({SCALE_MOE_P} parameters a replica, "
+        f"flat buffer {tuple(tr.params.shape)}) fused interval: "
+        f"{intervals} intervals in {wall:.3f} s = {intervals / wall:.4f} "
+        f"intervals/s, {tokens / wall:.1f} tokens/s, loss {losses}, ledger "
+        f"{ledger}, fused_consensus_sgd launches {launches}, "
+        f"max_memory_allocated {peak} B")
+    del tr
+    torch.cuda.empty_cache()
+    if profile:
+        profile_main_path(lambda: run(True, 1, "moe_profile")[2],
+                          "1 scale-moe interval (fused)")
+        torch.cuda.empty_cache()
+
+    fused_consensus_sgd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tr2, losses2, wall2, ledger2 = run(False, intervals, "moe_perleaf")
+    peak2 = torch.cuda.max_memory_allocated()
+    assert fused_consensus_sgd.launches == 0
+    assert losses2 == losses, (losses2, losses)
+    assert ledger2 == ledger, (ledger2, ledger)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tr2._global_params()), spec.leaf_views(g_fused)))
+    assert same, "the per-leaf global model is not the fused one"
+    log(f"[scale-moe] per-leaf step: {intervals} intervals in {wall2:.3f} "
+        f"s = {tokens / wall2:.1f} tokens/s, loss {losses2}, the same "
+        f"ledger, max_memory_allocated {peak2} B; losses and every "
+        f"parameter of the global model bitwise the fused run's")
+    # the trained global model's aux terms on one seeded batch
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(batch, seq))).cuda()
+    with torch.no_grad():
+        _, aux = model.forward(spec.unflatten_one(g_fused),
+                               {"tokens": toks}, dtype=torch.float32)
+    assert all(np.isfinite(float(v)) for v in aux.values()), aux
+    log(f"[scale-moe] the trained global model on a batch of {batch} x "
+        f"{seq}: load_balance {float(aux['load_balance']):.6f} (1 is "
+        f"balanced), router_z {float(aux['router_z']):.6f}")
+    del tr2, g_fused, w0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_flash() -> None:
     """``flash_attention`` at full width: qwen1.5-0.5b (24 layers) on one
     4,096-token sequence, the loss and every parameter's gradient through
@@ -3292,7 +3740,9 @@ PARTIAL_PHASES = {
     "scale-forms": phase_scale_forms,
     "scale-ssm": phase_scale_ssm,
     "scale-hybrid": phase_scale_hybrid,
+    "scale-moe": phase_scale_moe,
     "serve-hybrid": phase_serve_hybrid,
+    "serve-moe": phase_serve_moe,
     "flash": phase_flash,
     "obs": phase_obs,
 }
@@ -3360,13 +3810,17 @@ def main() -> int:
         "scale-ssm": timed("scale-ssm", phase_scale_ssm, profile=profile),
         "scale-forms": timed("scale-forms", phase_scale_forms,
                              warm_up=False),
-        "scale-hybrid": timed("scale-hybrid", phase_scale_hybrid)}
+        "scale-hybrid": timed("scale-hybrid", phase_scale_hybrid),
+        "scale-moe": timed("scale-moe", phase_scale_moe, profile=profile)}
     serve_launches, serve_bare = timed("serve", phase_serve, profile=profile)
     by_path["paged_decode"] = {
         "serve": serve_launches,
         "serve-hybrid": timed("serve-hybrid", phase_serve_hybrid,
                               profile=profile)}
     timed("flash", phase_flash)
+    by_path["paged_decode"]["serve-moe"] = timed("serve-moe",
+                                                 phase_serve_moe,
+                                                 profile=profile)
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
                                               profile=profile)}
     timed("forward-ssm", phase_forward_ssm)

@@ -18,7 +18,12 @@ runs the ``ssd_scan`` kernel) and the hybrid kind (``--arch
 recurrentgemma-9b``: RG-LRU state per slot and local attention over a
 2,048-token window — a ring of 2,048 slots, or pages masked to the
 window band by ``paged_decode``; a one-shot prefill past 2,048 tokens
-attends through ``flash_attention``) in all four modes.
+attends through ``flash_attention``) and the moe kind (``--arch
+llama4-scout-17b-a16e``, an MoE FFN in every layer, or
+``llama4-maverick-400b-a17b``, in every other layer: top-1 routing at
+the config's capacity factor 1.25; a prefill routes each request on its
+own, a decode step all slots as one group, as the reference does) in
+all four modes.
 
 Examples:
   python -m repro_torch.launch.serve --scheduler paged --requests 32 \
@@ -36,16 +41,17 @@ Examples:
   python -m repro_torch.launch.serve --arch recurrentgemma-9b \
       --scheduler paged --batch 8 --prompt-len 3072 --gen 64 \
       --requests 8 --prefill-chunk 256 --temperature 0   # on the card
+  python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \
+      --reduced --scheduler paged --temperature 0 --device cpu
 
 In the scheduler modes ``--trace-dir D`` writes the Chrome trace of the
 scheduler's spans (``D/trace.json``), one ``request`` record per retired
 request in ``D/metrics.jsonl`` and ``D/manifest.json``; ``--profile``
 adds a ``torch.profiler`` trace in ``D/torch_profile/trace.json``.
 
-Other ``--arch`` kinds raise: moe (ROADMAP.md Queue 1 item 6b), vlm and
-audio (item 6c). Not ported
-yet, and refused with the ROADMAP.md item that brings them: ``--mesh``
-and ``--host-devices`` (Queue 1 item 8).
+Other ``--arch`` kinds raise: vlm and audio (ROADMAP.md Queue 1 item
+6c). Not ported yet, and refused with the ROADMAP.md item that brings
+them: ``--mesh`` and ``--host-devices`` (Queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@
                      D2D mixing always goes through the ``consensus_mix``
                      wrapper: on the CUDA device it launches the kernel,
                      and on the CPU it runs the kernel's plain version.
-* ``--mode scale`` — TT-HF as the sync strategy for a dense, ssm or
-                     hybrid model-zoo arch (``--arch``) through
+* ``--mode scale`` — TT-HF as the sync strategy for a dense, moe, ssm
+                     or hybrid model-zoo arch (``--arch``) through
                      ``ScaleTrainer``,
                      on one device, with the reference's per-leaf
                      interval step.
@@ -46,13 +46,18 @@ Examples:
   python -m repro_torch.launch.train --mode scale \
       --arch recurrentgemma-9b --reduced --steps 2 --tau 2 --batch 2 \
       --seq 16 --device cpu
+  python -m repro_torch.launch.train --mode scale \
+      --arch llama4-maverick-400b-a17b --reduced --steps 2 --tau 2 \
+      --batch 2 --seq 16 --device cpu
   python -m repro_torch.launch.train --mode sim --model svm \
       --devices 20 --clusters 4 --points 800 --steps 20 --tau 10 \
       --trace-dir runs/sim --profile --device cpu
 
-Not ported yet, and refused with the ROADMAP.md item that brings it:
-``--arch`` of a kind other than dense, ssm or hybrid (Queue 1 items 6b
-and 6c).
+``--mode scale`` runs the dense, ssm, hybrid and moe (``--arch
+llama4-scout-17b-a16e``, ``llama4-maverick-400b-a17b``; the loss adds
+the routers' load-balance and z-losses) kinds. Not ported yet, and
+refused with the ROADMAP.md item that brings it: ``--arch`` of the vlm
+or audio kind (Queue 1 item 6c).
 """
 from __future__ import annotations
 

@@ -351,17 +351,32 @@ def page_flat_index(page_map: torch.Tensor, pos: torch.Tensor,
     return pg * page_size + pos % page_size
 
 
+def last_writers(flat: torch.Tensor) -> torch.Tensor:
+    """For each row of a write at page offsets ``flat`` (R,), the last
+    row that writes the same offset (the row itself where no later one
+    does), (R,) int64: the source rows of :func:`_paged_scatter`."""
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    return torch.where(flat[:, None] == flat[None, :], rows[None, :],
+                       -1).amax(1)
+
+
 def _paged_scatter(kv: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                   flat: torch.Tensor) -> None:
+                   flat: torch.Tensor, src: torch.Tensor) -> None:
     """Write per-row K/V (R, K, hd) at flat page offsets (R,) int64 into
     the (num_pages, page_size, K, hd) pools, in place. Rows routed to the
-    dummy page may share an offset; ``index_copy_`` then keeps no fixed
-    winner (on CUDA), which is harmless: nobody reads page 0 unmasked."""
+    dummy page may share an offset; the last such row wins, as in the
+    reference's serial scatter: ``index_copy_`` keeps no fixed winner
+    (on CUDA, and on the CPU's threads), so every row writes the values
+    of its offset's last row, ``src`` (:func:`last_writers` of
+    ``flat``). Page 0 must be deterministic: a slot mid-prefill or
+    retired attends to it in a decode step, and where an MoE FFN routes
+    every slot as one group, that slot's token takes expert capacity
+    from the live ones."""
     for name, new in (("k", k_new), ("v", v_new)):
         pool = kv[name]
         N, ps = pool.shape[:2]
         pool.view(N * ps, *pool.shape[2:]).index_copy_(
-            0, flat, new.to(pool.dtype))
+            0, flat, new[src].to(pool.dtype))
 
 
 def rotary_angles(cfg, positions: torch.Tensor):
@@ -386,18 +401,19 @@ def _rotate_new_token(cfg, q, k_new, rotary):
 
 def paged_decode_attention(p, cfg, x: torch.Tensor, cache: dict,
                            pos: torch.Tensor, page_map: torch.Tensor, *,
-                           flat: torch.Tensor, rotary, window: int = 0,
-                           use_kernel: bool = False):
+                           flat: torch.Tensor, src: torch.Tensor, rotary,
+                           window: int = 0, use_kernel: bool = False):
     """One-token attention step against a PAGED cache.
 
     x: (B, 1, d); cache: {'k','v'} (num_pages, page_size, K, hd), updated
     in place; pos: (B,) int32 absolute positions; page_map: (B,
     pages_per_slot) int32 — each slot's logical pages in position order
     (dummy page 0 for unallocated entries); ``flat``: the write offsets
-    of :func:`page_flat_index` and ``rotary``: the angles of
-    :func:`rotary_angles`, both made once per step for every layer. The
-    paged cache stores FULL positions and masks a [pos-window, pos]
-    band, so sliding archs need no ring arithmetic.
+    of :func:`page_flat_index`, ``src``: their :func:`last_writers`, and
+    ``rotary``: the angles of :func:`rotary_angles`, all made once per
+    step for every layer. The paged cache stores FULL positions and
+    masks a [pos-window, pos] band, so sliding archs need no ring
+    arithmetic.
 
     Returns (out, cache). With ``use_kernel`` the attention goes through
     the ``paged_decode`` wrapper (the CUDA kernel on a CUDA tensor, its
@@ -409,7 +425,7 @@ def paged_decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     q, k_new = _rotate_new_token(cfg, _project_q(p, cfg, x), k_new, rotary)
     # slots mid-prefill or retired carry an all-dummy page-map row, so
     # their write lands in the page-0 sink
-    _paged_scatter(cache, k_new[:, 0], v_new[:, 0], flat)
+    _paged_scatter(cache, k_new[:, 0], v_new[:, 0], flat, src)
     if use_kernel:
         out = paged_decode(q[:, 0].float().contiguous(), cache["k"],
                            cache["v"], page_map, pos, window=window)
@@ -464,5 +480,6 @@ def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
 
 __all__ = ["NEG_INF", "attention_block", "decode_attention",
            "flash_attention", "init_attention", "init_cache",
-           "init_paged_cache", "page_flat_index", "paged_decode_attention",
+           "init_paged_cache", "last_writers", "page_flat_index",
+           "paged_decode_attention",
            "rotary_angles", "sequence_attention", "simple_attention"]

@@ -5,9 +5,9 @@ part.
 dicts of tensors; ``abstract_params`` gives their shapes (on the
 ``meta`` device, so nothing is allocated) beside the logical-axes tree.
 The serving methods (prefill, decode, ring and paged caches) call
-:mod:`repro_torch.serving.engine`, dense, ssm and hybrid kinds; they
-update
-the caches they are given in place. ``use_kernel`` on ``forward``,
+:mod:`repro_torch.serving.engine`, dense, moe, ssm and hybrid kinds;
+they update the caches they are given in place. The moe kind's ``loss``
+adds the routers' aux losses. ``use_kernel`` on ``forward``,
 ``loss``, ``prefill`` and ``prefill_chunk`` sends the ssm kind's scans
 from a zero state through the ``ssd_scan`` kernel (forward only).
 """

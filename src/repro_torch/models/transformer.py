@@ -1,22 +1,27 @@
-"""The model stack — the port of the ``dense``, ``ssm`` and ``hybrid``
-kinds of ``repro/models/transformer.py``.
+"""The model stack — the port of the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` kinds of ``repro/models/transformer.py``.
 
 Per-layer parameters stay stacked on a leading ``layers`` axis, as in
 the reference, so the leaves, their order and a flat buffer's offsets
 match the reference column for column; the layer loop is a Python loop
-over that axis (the reference's ``lax.scan``). The hybrid kind
-(RecurrentGemma: RG-LRU blocks and local attention 2:1) stacks
+over that axis (the reference's ``lax.scan``). Heterogeneous stacks
+stack ``groups``, the smallest repeating unit, as the reference does:
+the hybrid kind (RecurrentGemma: RG-LRU blocks and local attention 2:1)
 ``groups`` of ``{rec_0, rec_1, attn}`` and a ``tail`` of the remaining
-recurrent layers, as the reference does; :func:`walk_layers` walks any
-of these layouts in the model's order. The reference's activation
-rematerialization (``remat``) changes no number; the port leaves it out
-and takes no ``remat`` option (ROADMAP.md Queue 1 item 6b).
+recurrent layers; the moe kind with an MoE FFN every ``moe_every > 1``
+layers (llama4-maverick) ``groups`` of ``{dense_0, ..., moe}``, and with
+one in every layer (llama4-scout) a plain ``layers`` stack.
+:func:`walk_layers` walks any of these layouts in the model's order. The
+reference's activation rematerialization (``remat``) changes no number;
+the port leaves it out and takes no ``remat`` option.
 
-The ssm kind (Mamba-2, :mod:`repro_torch.models.ssm`) takes
-``use_kernel``, the reference's ``use_pallas``: its scans through the
-forward-only ``ssd_scan`` kernel. The other kinds raise
-``NotImplementedError``: moe comes with ROADMAP.md Queue 1 item 6b, vlm,
-encdec and audio with item 6c.
+The moe kind's forward returns the load-balance and router z-losses,
+each the mean over the MoE layers, and :func:`loss_fn` adds them with
+the reference's weights. The ssm kind (Mamba-2,
+:mod:`repro_torch.models.ssm`) takes ``use_kernel``, the reference's
+``use_pallas``: its scans through the forward-only ``ssd_scan`` kernel.
+The vlm, encdec and audio kinds raise ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models import rglru as rgm
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
@@ -34,9 +40,9 @@ from repro_torch.models.common import (
     split_tree, tree_from_items, tree_items)
 
 
-PORTED_KINDS = ("dense", "ssm", "hybrid")
+PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 # the ROADMAP.md Queue 1 item that brings each kind still to port
-_ITEM = {"moe": "6b", "vlm": "6c", "encdec": "6c", "audio": "6c"}
+_ITEM = {"vlm": "6c", "encdec": "6c", "audio": "6c"}
 
 
 def require_ported(cfg) -> None:
@@ -44,31 +50,43 @@ def require_ported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {', '.join(PORTED_KINDS)} "
             f"kinds; the {cfg.kind!r} kind is not ported yet (ROADMAP.md "
-            f"Queue 1 item {_ITEM.get(cfg.kind, '6b')})")
+            f"Queue 1 item {_ITEM.get(cfg.kind, '6c')})")
 
 
 # ---------------------------------------------------------------------------
 # the layer
 # ---------------------------------------------------------------------------
 
-def init_dense_layer(gen, cfg, *, device) -> dict:
-    return {
+def init_dense_layer(gen, cfg, *, device, use_moe: bool = False) -> dict:
+    p = {
         "ln_attn": norm_init(cfg, cfg.d_model, device=device),
         "attn": attn.init_attention(gen, cfg, device=device),
         "ln_mlp": norm_init(cfg, cfg.d_model, device=device),
-        "mlp": mlpm.init_mlp(gen, cfg, device=device),
     }
+    p["moe" if use_moe else "mlp"] = (
+        moem.init_moe(gen, cfg, device=device) if use_moe
+        else mlpm.init_mlp(gen, cfg, device=device))
+    return p
+
+
+def apply_ffn(p, cfg, h: torch.Tensor, token_mask=None):
+    """A layer's feed-forward block on its normed input: the MoE FFN
+    where the layer has one (its aux beside it; ``token_mask``, (B, T)
+    bool, keeps pad tokens out of the routing), else the MLP (aux None)."""
+    if "moe" in p:
+        return moem.apply_moe(p["moe"], cfg, h, token_mask=token_mask)
+    return mlpm.apply_mlp(p["mlp"], cfg, h), None
 
 
 def apply_dense_layer(p, cfg, x: torch.Tensor, *, mode: str = "causal",
-                      window: int = 0, prefix_len=None,
-                      positions=None) -> torch.Tensor:
+                      window: int = 0, prefix_len=None, positions=None):
+    """-> (x, the MoE FFN's aux, or None for an MLP layer)."""
     h = apply_norm(cfg, p["ln_attn"], x)
     h = attn.attention_block(p["attn"], cfg, h, mode=mode, window=window,
                              prefix_len=prefix_len, positions=positions)
     x = x + h
-    h = apply_norm(cfg, p["ln_mlp"], x)
-    return x + mlpm.apply_mlp(p["mlp"], cfg, h)
+    y, aux = apply_ffn(p, cfg, apply_norm(cfg, p["ln_mlp"], x))
+    return x + y, aux
 
 
 def init_ssm_layer(gen, cfg, *, device) -> dict:
@@ -102,24 +120,54 @@ def hybrid_layout(cfg) -> tuple[int, int, int]:
     return period, n_groups, cfg.num_layers - n_groups * period
 
 
+def group_layout(cfg):
+    """The stack's ``groups`` layout, or None where the layers stack
+    plainly on ``layers``: ((member name, layer kind) of a group, in the
+    model's order; groups; layers in the recurrent ``tail``). The hybrid
+    kind's group is (rec_0, rec_1, attn); the moe kind's, where
+    ``moe_every > 1``, is (dense_0, ..., moe), every member an attention
+    layer, and ``num_layers // moe_every`` groups drop any remainder, as
+    the reference does."""
+    if cfg.kind == "hybrid":
+        period, n_groups, rem = hybrid_layout(cfg)
+        return ((*((f"rec_{i}", "rec") for i in range(period - 1)),
+                 ("attn", "attn")), n_groups, rem)
+    if cfg.kind == "moe" and cfg.moe_every > 1:
+        return ((*((f"dense_{i}", "attn") for i in range(cfg.moe_every - 1)),
+                 ("moe", "attn")), cfg.num_layers // cfg.moe_every, 0)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # stack init
 # ---------------------------------------------------------------------------
 
 def _stack(init_one: Callable[[], dict], n: int) -> dict:
-    """n layer inits stacked on a leading ``layers`` axis (Px leaves)."""
-    layers = [init_one() for _ in range(n)]
+    """n layer inits stacked on a leading ``layers`` axis (Px leaves),
+    each layer written into the stack as it is drawn: the stack and one
+    layer are alive at once, not the stack and every layer."""
+    first = init_one()
 
-    def stack(*leaves: Px) -> Px:
-        return Px(torch.stack([l.value for l in leaves]),
-                  ("layers",) + tuple(leaves[0].axes))
+    def alloc(tree):
+        return {k: alloc(v) if isinstance(v, dict) else Px(
+                    torch.empty((n,) + tuple(v.value.shape),
+                                dtype=v.value.dtype, device=v.value.device),
+                    ("layers",) + tuple(v.axes))
+                for k, v in tree.items()}
 
-    def walk(nodes):
-        return {k: (walk([nd[k] for nd in nodes])
-                    if isinstance(nodes[0][k], dict)
-                    else stack(*(nd[k] for nd in nodes)))
-                for k in nodes[0]}
-    return walk(layers)
+    def write(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                write(dst[k], v, i)
+            else:
+                dst[k].value[i].copy_(v.value)
+
+    stacked = alloc(first)
+    write(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        write(stacked, init_one(), i)
+    return stacked
 
 
 def init_model(gen, cfg, *, device) -> dict:
@@ -134,23 +182,30 @@ def init_model(gen, cfg, *, device) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, V, cfg.d_model,
                                   ("vocab", "embed_nomodel"), device=device)
-    if cfg.kind == "hybrid":
-        period, n_groups, rem = hybrid_layout(cfg)
-
-        def group():
-            g = {f"rec_{i}": init_rec_layer(gen, cfg, device=device)
-                 for i in range(period - 1)}
-            g["attn"] = init_dense_layer(gen, cfg, device=device)
-            return g
-        if n_groups:
-            p["groups"] = _stack(group, n_groups)
-        if rem:
-            p["tail"] = _stack(
-                lambda: init_rec_layer(gen, cfg, device=device), rem)
+    layout = group_layout(cfg)
+    if layout is None:
+        if cfg.kind == "ssm":
+            p["layers"] = _stack(
+                lambda: init_ssm_layer(gen, cfg, device=device),
+                cfg.num_layers)
+        else:
+            p["layers"] = _stack(lambda: init_dense_layer(
+                gen, cfg, device=device, use_moe=cfg.kind == "moe"),
+                cfg.num_layers)
         return p
-    init_layer = init_ssm_layer if cfg.kind == "ssm" else init_dense_layer
-    p["layers"] = _stack(lambda: init_layer(gen, cfg, device=device),
-                         cfg.num_layers)
+    members, n_groups, rem = layout
+
+    def group():
+        return {name: init_rec_layer(gen, cfg, device=device)
+                if kind == "rec" else
+                init_dense_layer(gen, cfg, device=device,
+                                 use_moe=name == "moe")
+                for name, kind in members}
+    if n_groups:
+        p["groups"] = _stack(group, n_groups)
+    if rem:
+        p["tail"] = _stack(lambda: init_rec_layer(gen, cfg, device=device),
+                           rem)
     return p
 
 
@@ -189,23 +244,23 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
 
 def walk_layers(cfg, *trees: dict) -> Iterator[tuple]:
     """The model's layers in order, as ``(layer kind, the layer's view of
-    each tree)`` with kind "attn", "ssm" or "rec". ``trees`` share the
-    stack layout of :func:`init_model` (the parameters, a cache):
-    ``layers``, or the hybrid kind's ``groups`` of ``{rec_0, rec_1,
-    attn}`` and then its ``tail``. The views write through to the
-    stacks."""
-    if cfg.kind != "hybrid":
+    each tree)`` with kind "attn", "ssm" or "rec" (an MoE layer is an
+    "attn" layer whose FFN is ``moe``). ``trees`` share the stack layout
+    of :func:`init_model` (the parameters, a cache): ``layers``, or the
+    ``groups`` of :func:`group_layout` and then a ``tail``. The views
+    write through to the stacks."""
+    layout = group_layout(cfg)
+    if layout is None:
         kind = "ssm" if cfg.kind == "ssm" else "attn"
         for views in zip(*(_unstack(t["layers"], cfg.num_layers)
                            for t in trees)):
             yield (kind, *views)
         return
-    period, n_groups, rem = hybrid_layout(cfg)
+    members, n_groups, rem = layout
     if n_groups:
         for views in zip(*(_unstack(t["groups"], n_groups) for t in trees)):
-            for i in range(period - 1):
-                yield ("rec", *(v[f"rec_{i}"] for v in views))
-            yield ("attn", *(v["attn"] for v in views))
+            for name, kind in members:
+                yield (kind, *(v[name] for v in views))
     if rem:
         for views in zip(*(_unstack(t["tail"], rem) for t in trees)):
             yield ("rec", *views)
@@ -226,25 +281,38 @@ def attention_mode(cfg, serve_window: int = 0) -> tuple[str, int]:
 
 def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
     """Full-sequence forward -> (logits, aux_losses).
-    batch: {"tokens": (B, T) int}. ``use_kernel`` (ssm kind): the scans
+    batch: {"tokens": (B, T) int}. ``aux_losses``: the moe kind's
+    ``load_balance`` and ``router_z``, each the mean over the MoE layers;
+    empty for the other kinds. ``use_kernel`` (ssm kind): the scans
     through the forward-only ``ssd_scan`` kernel."""
     require_ported(cfg)
     x = _embed_tokens(p, cfg, batch["tokens"], dtype)
     mode, window = attention_mode(cfg)
+    auxs = []
     for kind, lp in walk_layers(cfg, p):
         if kind == "ssm":
             x = apply_ssm_layer(lp, cfg, x, use_kernel=use_kernel)
         elif kind == "rec":
             x = apply_rec_layer(lp, cfg, x)
         else:
-            x = apply_dense_layer(lp, cfg, x, mode=mode, window=window)
+            x, aux = apply_dense_layer(lp, cfg, x, mode=mode, window=window)
+            if aux is not None:
+                auxs.append(aux)
     x = apply_norm(cfg, p["ln_final"], x)
-    return _unembed(p, cfg, x), {}
+    aux_losses = {k: torch.stack([a[k] for a in auxs]).mean()
+                  for k in ("load_balance", "router_z")} if auxs else {}
+    return _unembed(p, cfg, x), aux_losses
 
 
 def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
-    logits, _ = forward(p, cfg, batch, dtype=dtype, use_kernel=use_kernel)
-    return softmax_cross_entropy(logits, batch["labels"])
+    """Mean token NLL, plus the moe kind's aux losses:
+    ``moe_aux_loss_weight * load_balance + 1e-3 * router_z``."""
+    logits, aux = forward(p, cfg, batch, dtype=dtype, use_kernel=use_kernel)
+    loss = softmax_cross_entropy(logits, batch["labels"])
+    if "load_balance" in aux:
+        loss = loss + cfg.moe_aux_loss_weight * aux["load_balance"] \
+            + 1e-3 * aux["router_z"]
+    return loss
 
 
 def init_tree(gen, cfg, *, device) -> tuple[dict, dict]:
@@ -252,8 +320,8 @@ def init_tree(gen, cfg, *, device) -> tuple[dict, dict]:
     return split_tree(init_model(gen, cfg, device=device))
 
 
-__all__ = ["PORTED_KINDS", "apply_dense_layer", "apply_rec_layer",
-           "apply_ssm_layer", "attention_mode", "forward",
-           "hybrid_layout", "init_dense_layer", "init_model",
+__all__ = ["PORTED_KINDS", "apply_dense_layer", "apply_ffn",
+           "apply_rec_layer", "apply_ssm_layer", "attention_mode", "forward",
+           "group_layout", "hybrid_layout", "init_dense_layer", "init_model",
            "init_rec_layer", "init_ssm_layer", "init_tree", "loss_fn",
            "require_ported", "walk_layers"]

@@ -88,7 +88,9 @@ def make_divergence_probe(num_clusters: int, cluster_size: int,
                 del e
                 gmean = torch.einsum("c,cm->m", v, means)
                 disp += (v * ((means - gmean) ** 2).sum(dim=-1)).sum()
-                pn += torch.linalg.vector_norm(zb).square()
+                # row by row: one norm over the whole block sums
+                # sequentially on one CPU thread, 1.6e-3 off at 1.6 M
+                pn += torch.linalg.vector_norm(zb, dim=-1).square().sum()
             ups.append(up)
             # Definition 3, cns.consensus_error, from the same residuals
             errs.append(sq_leaf.mean(dim=1))

@@ -1,11 +1,12 @@
-"""Serving runtime for the dense, ssm and hybrid kinds — the port of
-``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
+"""Serving runtime for the dense, moe, ssm and hybrid kinds — the port
+of ``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
 single-token decode, and the paged cache's chunked prefill and page-map
 decode.
 
 Cache layout: one dict per model in the stack layout of the parameters
 (``layers``; the hybrid kind's ``groups`` of ``{rec_0, rec_1, attn}``
-and ``tail``), every leaf with the stack's leading axis, as in the
+and ``tail``; the moe kind's ``groups`` of ``{dense_0, ..., moe}`` where
+``moe_every > 1``), every leaf with the stack's leading axis, as in the
 reference. Sliding-window archs (the hybrid kind's local attention, and
 the serving-window variant of full-attention archs) keep a **ring
 buffer** of ``window`` positions in the ring cache: slot = pos % window,
@@ -26,8 +27,13 @@ place and returns it. Chunk offsets, valid counts and slot indices are
 Python ints (the reference traced them for one jit signature; eager
 torch needs none, and a host int costs no device sync).
 
-The dense, ssm and hybrid kinds are ported; the other kinds raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b or 6c. A
+The moe kind routes as the reference does: a one-shot prefill with
+``lengths`` and a paged chunk mask their pad tokens out of the MoE
+routing (each row its own group, so a request routes as it would
+alone), while both decodes route every slot of the batch, live or not,
+as one group at the config's capacity factor. The dense, moe, ssm and
+hybrid kinds are ported; the other kinds raise ``NotImplementedError``
+naming ROADMAP.md Queue 1 item 6c. A
 one-shot prefill past 2048 tokens attends through the chunked
 ``flash_attention`` (the reference's branch); a paged chunk attends to
 its slot's gathered pages, materialized. ``use_kernel`` on
@@ -48,11 +54,10 @@ from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
     apply_norm, apply_rope, tree_items, tree_leaves)
 from repro_torch.models.transformer import (
-    _embed_tokens, _unembed, attention_mode, hybrid_layout, require_ported,
-    walk_layers)
+    _embed_tokens, _unembed, apply_ffn, attention_mode, group_layout,
+    require_ported, walk_layers)
 
-# the kinds the paged design serves (the reference's); the port runs
-# dense, ssm and hybrid
+# the kinds the paged design serves (the reference's, every one ported)
 PAGED_KINDS = ("dense", "moe", "ssm", "hybrid")
 _CONV_LEAVES = ("conv_x", "conv_B", "conv_C")
 
@@ -76,14 +81,14 @@ def _cache_tree(cfg, make: dict) -> dict:
     """The whole model's cache in the stack layout of the parameters:
     ``make[kind]()`` gives one layer's leaves for each layer kind
     ("attn", "ssm", "rec"), stacked as :func:`walk_layers` walks them."""
-    if cfg.kind != "hybrid":
+    layout = group_layout(cfg)
+    if layout is None:
         kind = "ssm" if cfg.kind == "ssm" else "attn"
         return {"layers": _stack_leaves(make[kind](), cfg.num_layers)}
-    period, n_groups, rem = hybrid_layout(cfg)
+    members, n_groups, rem = layout
     tree = {}
     if n_groups:
-        group = {f"rec_{i}": make["rec"]() for i in range(period - 1)}
-        group["attn"] = make["attn"]()
+        group = {name: make[kind]() for name, kind in members}
         tree["groups"] = _stack_leaves(group, n_groups)
     if rem:
         tree["tail"] = _stack_leaves(make["rec"](), rem)
@@ -94,9 +99,13 @@ def _kv_pool(cfg, cache: dict):
     """The first attention stack's K leaf (its page size or ring length
     is every attention layer's), or None when the model has no
     attention layer."""
-    if cfg.kind == "hybrid":
-        return cache["groups"]["attn"]["k"] if "groups" in cache else None
-    return None if cfg.kind == "ssm" else cache["layers"]["k"]
+    layout = group_layout(cfg)
+    if layout is None:
+        return None if cfg.kind == "ssm" else cache["layers"]["k"]
+    if "groups" not in cache:
+        return None
+    name = next(name for name, kind in layout[0] if kind == "attn")
+    return cache["groups"][name]["k"]
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +134,9 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     ``{"layers": {"k", "v"}}`` of ``(layers, batch, S, K, hd)`` (ssm:
     ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state;
     hybrid: ``{"groups": {"rec_0", "rec_1": {"h", "conv"}, "attn":
-    {"k", "v"}}, "tail": {"h", "conv"}}``), on ``device`` (default: the
-    CUDA device)."""
+    {"k", "v"}}, "tail": {"h", "conv"}}``; moe with ``moe_every > 1``:
+    ``{"groups": {"dense_0", ..., "moe": {"k", "v"}}}``), on ``device``
+    (default: the CUDA device)."""
     require_ported(cfg)
     device = resolve_device(device)
     S = cache_len_for(cfg, seq_len, serve_window)
@@ -188,8 +198,9 @@ def _rotate(q: torch.Tensor, k: torch.Tensor, rotary):
 
 def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
                         window: int, rotary, lengths=None) -> torch.Tensor:
-    """Dense layer forward that also writes its KV ring-cache slice
-    ``c`` in place."""
+    """Dense (or MoE) layer forward that also writes its KV ring-cache
+    slice ``c`` in place; with ``lengths`` the pad tokens take no part in
+    the MoE routing."""
     B, T, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
@@ -197,8 +208,10 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
     out = attn.sequence_attention(q, k, v, mode=mode, window=window)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
     x = x + out @ lp["attn"]["wo"].to(x.dtype)
-    h = apply_norm(cfg, lp["ln_mlp"], x)
-    x = x + mlpm.apply_mlp(lp["mlp"], cfg, h)
+    tmask = None if lengths is None else (
+        torch.arange(T, device=x.device)[None, :] < lengths[:, None])
+    y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x), tmask)
+    x = x + y
     ck, cv = _ring_fill(k, v, c["k"].shape[1], c["k"].dtype, lengths)
     c["k"].copy_(ck)
     c["v"].copy_(cv)
@@ -336,7 +349,8 @@ def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend,
     """The decode stack, every layer's cache updated in place:
     ``attend(layer attn params, normed x, layer cache)`` -> the attention
     output of an attention layer; an ssm or RG-LRU layer's state through
-    :func:`_write_state`; then the logits."""
+    :func:`_write_state`; then the logits. An MoE FFN routes all B lanes
+    as one group, with no mask, as the reference does."""
     for kind, lp, c in walk_layers(cfg, p, cache):
         if kind == "ssm":
             y, new = ssmm.decode_ssm(lp["ssm"], cfg,
@@ -352,8 +366,8 @@ def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend,
         else:
             h = apply_norm(cfg, lp["ln_attn"], x)
             x = x + attend(lp["attn"], h, c)
-        h = apply_norm(cfg, lp["ln_mlp"], x)
-        x = x + mlpm.apply_mlp(lp["mlp"], cfg, h)
+        y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x))
+        x = x + y
     x = apply_norm(cfg, p["ln_final"], x)
     return _unembed(p, cfg, x)
 
@@ -439,20 +453,22 @@ def init_paged_cache_tree(cfg, slots: int, num_pages: int, page_size: int,
 
 def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
                       window: int, start: int, valid: int,
-                      flat: torch.Tensor, row: torch.Tensor,
-                      rotary) -> torch.Tensor:
-    """One attn layer over a prefill chunk, writing K/V into pages.
+                      flat: torch.Tensor, src: torch.Tensor,
+                      row: torch.Tensor, rotary) -> torch.Tensor:
+    """One attn layer over a prefill chunk, writing K/V into pages; the
+    chunk's pad rows (>= valid) take no part in the MoE routing.
 
     x: (1, C, d); kv: {'k','v'} page pools of this layer, updated in
     place; start/valid: the chunk offset and its number of real tokens;
     flat: (C,) pool offsets of the chunk's rows (rows >= valid point
-    into the dummy page); row: (pages_per_slot,) this slot's pages.
+    into the dummy page), src: each row's last writer of its offset;
+    row: (pages_per_slot,) this slot's pages.
     """
     B, C, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
     q, k = _rotate(attn._project_q(lp["attn"], cfg, h), k, rotary)
-    attn._paged_scatter(kv, k[0], v[0], flat)
+    attn._paged_scatter(kv, k[0], v[0], flat, src)
     ps, P = kv["k"].shape[1], row.shape[0]
     kg = kv["k"][row].reshape(1, P * ps, *kv["k"].shape[2:])
     vg = kv["v"][row].reshape(1, P * ps, *kv["v"].shape[2:])
@@ -461,8 +477,9 @@ def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
                                 k_len=start + valid)
     out = out.reshape(B, C, cfg.num_heads * cfg.head_dim)
     x = x + out @ lp["attn"]["wo"].to(x.dtype)
-    h = apply_norm(cfg, lp["ln_mlp"], x)
-    return x + mlpm.apply_mlp(lp["mlp"], cfg, h)
+    y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x),
+                     (torch.arange(C, device=x.device) < valid)[None, :])
+    return x + y
 
 
 def _chunk_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
@@ -548,6 +565,7 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
         # one host-to-device copy for both index vectors
         idx = torch.as_tensor(np.concatenate([flat, row]), device=device)
         flat_t, row_t = idx[:C], idx[C:]
+        src_t = attn.last_writers(flat_t)
         rotary = attn.rotary_angles(cfg,
                                     start + torch.arange(C, device=device))
     x = _embed_tokens(p, cfg, torch.as_tensor(tokens, device=device), dtype)
@@ -562,7 +580,7 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
         else:
             x = _chunk_attn_layer(lp, cfg, x, c, mode=mode, window=window,
                                   start=start, valid=valid, flat=flat_t,
-                                  row=row_t, rotary=rotary)
+                                  src=src_t, row=row_t, rotary=rotary)
     return cache, _last_logits(p, cfg, x, valid)
 
 
@@ -597,14 +615,16 @@ def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
         return _decode_layers(p, cfg, x, cache, None, live=live), cache
     pos = pos.reshape(-1).expand(token.shape[0])
     w = effective_window(cfg, serve_window)
-    # the write offsets and the RoPE angles, once for all layers
+    # the write offsets, their source rows and the RoPE angles, once for
+    # all layers
     flat = attn.page_flat_index(page_map, pos, pool.shape[2])
+    src = attn.last_writers(flat)
     rotary = attn.rotary_angles(cfg, pos[:, None])
 
     def attend(ap, h, c):
         return attn.paged_decode_attention(
             ap, cfg, h, c, pos, page_map, window=w, use_kernel=use_kernel,
-            flat=flat, rotary=rotary)[0]
+            flat=flat, src=src, rotary=rotary)[0]
 
     return _decode_layers(p, cfg, x, cache, attend, live=live), cache
 

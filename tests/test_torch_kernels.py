@@ -166,6 +166,10 @@ PAGED_CASES = {
     # 256) under its 2,048 window, slots before, at and past the window
     "hybrid-serve": (8, 1, 16, 256, 16, 196, 1569, 2048,
                      [700, 1500, 2047, 2048, 2300, 2600, 3000, 3135]),
+    # the moe kind's serve shape: llama4-scout's GQA (K 8, G 5, hd 128),
+    # 8 slots of 36 pages (512-token prompts and 64 new tokens), 289 pages
+    "scout-serve": (8, 8, 5, 128, 16, 36, 289, 0,
+                    [250, 296, 342, 388, 434, 480, 526, 575]),
 }
 # the kernel's split at its boundaries: 4 slots of 12 pages of 16 (192
 # positions), hd 64, so a chunk of 64 positions (four pages) in f32 and
@@ -211,7 +215,7 @@ def _paged_inputs(case, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
     for case in ("reference-window", "dummy-row-window", "gemma-mqa",
-                 "hybrid-serve"):
+                 "hybrid-serve", "scout-serve"):
         *args, window = _paged_inputs(case, dtype, "cpu")
         before = paged_decode.launches
         out = paged_decode(*args, window=window)
@@ -229,6 +233,7 @@ def test_paged_decode_cpu_tensors_take_the_plain_version(dtype):
     (256, 16, 8, torch.float32, 16, 8),        # gemma-mqa: one page
     (256, 16, 8, torch.bfloat16, 32, 4),
     (256, 16, 196, torch.float32, 16, 196),    # hybrid-serve
+    (128, 16, 36, torch.float32, 32, 18),      # scout-serve
     (8, 4, 3, torch.float32, 12, 1),           # reference: the whole slot
     (64, 48, 4, torch.float32, 48, 4),         # whole pages of 48
     (64, 100, 3, torch.float32, 64, 5),        # a page above a chunk

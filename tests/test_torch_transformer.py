@@ -245,15 +245,28 @@ def test_attention_block_matches_with_bias_and_gqa():
 
 
 def test_unported_kinds_and_long_sequences_raise():
-    """Kept under its old name: the kinds still to port (moe, vlm,
-    audio) raise; a sequence past 2,048 tokens, once refused, now trains
-    through ``flash_attention`` and its loss equals the reference's flash
-    path (rtol 1e-5)."""
+    """Kept under its old name: the kinds still to port (vlm, audio)
+    raise with item 6c; the moe kind, once refused, now runs (a reduced
+    llama4 of each layout gives a finite loss with both aux terms; held
+    to the reference in tests/test_torch_moe.py); a sequence past 2,048
+    tokens, once refused, now trains through ``flash_attention`` and its
+    loss equals the reference's flash path (rtol 1e-5)."""
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 64, size=(2, 8)))
     for name, cfg in ARCHS.items():
-        if cfg.kind in ("dense", "ssm", "hybrid"):     # the ported kinds
+        if cfg.kind in ("dense", "ssm", "hybrid"):     # ported earlier
             continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            build_model(cfg.reduced()).init(torch.Generator(), "cpu")
+        m = build_model(cfg.reduced(d_model=64, d_ff=128, vocab_size=64))
+        if cfg.kind != "moe":
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 6c"):
+                m.init(torch.Generator(), "cpu")
+            continue
+        p = m.init(torch.Generator().manual_seed(0), "cpu")
+        _, aux = m.forward(p, {"tokens": toks}, dtype=torch.float32)
+        assert set(aux) == {"load_balance", "router_z"}
+        assert torch.isfinite(m.loss(p, {"tokens": toks, "labels": toks},
+                                     dtype=torch.float32))
     kw = dict(d_model=64, vocab_size=64)
     cfg = get_arch("qwen1.5-0.5b").reduced(**kw)
     jcfg = j_get_arch("qwen1.5-0.5b").reduced(**kw)
