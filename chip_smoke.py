@@ -19,8 +19,9 @@ continuous-batching serving of qwen1.5-0.5b, of the full
 recurrentgemma-9b (RG-LRU and local attention over a 2,048-token
 window) and of llama4-scout at full width (4 of its 48 layers, 16
 experts, top-1 routing), continuous-batching serving of
-mamba2-370m, and training and prefill past 2,048 tokens through the
-chunked ``flash_attention`` — and holds every kernel of those paths
+mamba2-370m, training and prefill past 2,048 tokens through the
+chunked ``flash_attention``, and direct serving of the full paligemma-3b
+and whisper-small — and holds every kernel of those paths
 against its plain PyTorch version; then the sim, scale and serve paths
 again with the observability sink and a full-width checkpoint, held to
 their bare runs.
@@ -236,6 +237,32 @@ caught):
              plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
              over 48 layers); and a reduced mamba2's serve trace on the
              card against the same trace on the CPU (the same tokens).
+7b. vlm   — the serve CLI's direct mode (``launch/serve.py --arch
+             paligemma-3b --batch 8 --prompt-len 1920 --gen 64
+             --temperature 0``, ``main(argv)`` on the card, random f32
+             weights from seed 0) on the full paligemma-3b (18 layers,
+             2,508,793,856 parameters): 256 stub patches before each
+             prompt, 2,176 positions, so the prefill's prefix mask runs
+             through ``flash_attention`` (18 calls, counted); the same
+             run through ``run_direct`` with its logits kept (the same
+             tokens): the prefill's last logits against a materialized
+             prefill, the prefill and 64 decode steps teacher-forced
+             against one forward over patches, prompt and greedy tokens
+             (each within 1e-4 of max |logit|); one 2,176-position
+             sequence's loss, logits and every gradient through flash
+             against the materialized path (as [flash]); a reduced
+             paligemma's direct run on the card against the CPU (logits
+             1e-4 of max |logit|, the same tokens). No kernel lies on
+             this path. It prints prefill s, decode tokens/s and peaks.
+7c. audio  — the same for the full whisper-small (12 + 12 layers,
+             1,500 stub frames, 238,279,680 parameters; ``--batch 8
+             --prompt-len 64 --gen 64``), no flash on the main path; the
+             encoder timed alone (CUDA events); one 4,096-token decoder
+             prompt through a one-shot prefill and through the loss and
+             gradient, each self-attention causal and each cross block
+             (1,500 keys padded to 2,048, ``k_len`` 1,500) through
+             ``flash_attention`` (24 calls), against the materialized
+             path; a reduced whisper on the card against the CPU.
 8. obs     — the observability sink and checkpoints, each run held to
              its bare run (bitwise where two bare runs on the card are
              bitwise equal, which the phase checks and prints first;
@@ -343,6 +370,21 @@ SCALE_MOE_P = 1_593_902_080
 # sequence; a one-shot prefill of 3,000 tokens
 FLASH_T = 4096
 FLASH_PREFILL_T = 3000
+# [vlm]: the full paligemma-3b (18 layers, d 2,048, MQA of 8 heads of
+# 256, vocabulary 257,216) through the serve CLI's direct mode: 1,920
+# text tokens behind the 256 patches, 2,176 positions, past the 2,048
+# flash threshold under the prefix mask
+VLM_ARGV = ["--arch", "paligemma-3b", "--batch", "8", "--prompt-len", "1920",
+            "--gen", "64", "--temperature", "0"]
+VLM_P = 2_508_793_856
+# [audio]: the full whisper-small (12 encoder and 12 decoder layers, d
+# 768, 1,500 frames) through the serve CLI's direct mode, and one
+# 4,096-token decoder sequence through flash (the cross block's 1,500
+# keys padded to 2,048)
+AUDIO_ARGV = ["--arch", "whisper-small", "--batch", "8", "--prompt-len",
+              "64", "--gen", "64", "--temperature", "0"]
+AUDIO_P = 238_279_680
+AUDIO_LONG_T = 4096
 SCALE_LR = 2e-3                    # the scale CLI's --lr
 SCALE_BATCH = 16                   # the scale CLI's --batch (per replica)
 # paged_decode: name -> (B, K, G, hd, page_size, P, num_pages, window,
@@ -3253,69 +3295,19 @@ def phase_flash() -> None:
     attention (``flash_threshold`` raised: some 1 GB of f32 scores kept
     a layer); and a one-shot ring prefill of a 3,000-token prompt
     (through flash) against the same prompt in 256-token paged chunks."""
-    import functools
-
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import attention as attn
     from repro_torch.models import build_model
-    from repro_torch.models.common import softmax_cross_entropy, tree_leaves
     from repro_torch.serving import pages_per_slot
 
     cfg = get_arch("qwen1.5-0.5b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
-    leaves = tree_leaves(params)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(1, FLASH_T))).cuda()
-
-    def loss_and_grads():
-        for l in leaves:
-            l.requires_grad_(True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        logits, _ = model.forward(params, {"tokens": toks},
-                                  dtype=torch.float32)
-        loss = softmax_cross_entropy(logits, toks)
-        grads = torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        for l in leaves:
-            l.requires_grad_(False)
-        return (logits.detach(), float(loss.detach()), grads, wall,
-                torch.cuda.max_memory_allocated())
-
-    flashes, unpatch = flash_counter()
-    try:
-        lf, loss_f, gf, wall_f, peak_f = loss_and_grads()
-    finally:
-        unpatch()
-    assert flashes[0] == cfg.num_layers, flashes
-    original = attn.attention_block
-    attn.attention_block = functools.partial(original,
-                                             flash_threshold=FLASH_T)
-    try:
-        lm, loss_m, gm, wall_m, peak_m = loss_and_grads()
-    finally:
-        attn.attention_block = original
-    logit_err = float((lf - lm).abs().max()) / float(lm.abs().max())
-    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gf, gm))
-    den = sum(float((b ** 2).sum()) for b in gm)
-    grad_rel = (num / den) ** 0.5
-    assert np.isfinite(loss_f) and abs(loss_f - loss_m) <= 1e-4 * abs(loss_m)
-    assert logit_err <= LOGIT_TOL, logit_err
-    assert grad_rel <= 1e-4, grad_rel
-    log(f"[flash] qwen1.5-0.5b ({cfg.num_layers} layers) on one "
-        f"{FLASH_T}-token sequence: loss through flash_attention "
-        f"{loss_f:.6f} vs materialized {loss_m:.6f}; logits max |diff| "
-        f"{logit_err:.3e} of max |logit| (tol {LOGIT_TOL}); gradient "
-        f"relative L2 {grad_rel:.3e} (tol 1e-4); forward + backward "
-        f"{wall_f:.3f} s, max_memory_allocated {peak_f} B through flash "
-        f"({flashes[0]} calls); {wall_m:.3f} s, {peak_m} B materialized")
-    del lf, lm, gf, gm
-    torch.cuda.empty_cache()
+    hold_flash_loss("flash", model, params, {"tokens": toks},
+                    flash_calls=cfg.num_layers)
 
     # a one-shot ring prefill past 2,048 tokens against paged chunks
     prompt = np.random.default_rng(1).integers(
@@ -3351,6 +3343,331 @@ def phase_flash() -> None:
         f"logits max |diff| {err:.3e} of max |logit| (tol {LOGIT_TOL})")
     del params, cache
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio kinds (paligemma-3b, whisper-small) in direct serving
+# ---------------------------------------------------------------------------
+
+class materialized:
+    """Inside it every sequence attention materializes its scores up to
+    ``threshold`` positions: ``flash_threshold`` raised in
+    ``attention.sequence_attention`` (which the engine's prefill calls)
+    and in ``attention.attention_block`` (the model's layers, the cross
+    blocks)."""
+
+    def __init__(self, threshold: int):
+        self.threshold = threshold
+
+    def __enter__(self):
+        import functools
+        from repro_torch.models import attention as attn
+        self.saved = attn.sequence_attention, attn.attention_block
+        attn.sequence_attention = functools.partial(
+            self.saved[0], flash_threshold=self.threshold)
+        attn.attention_block = functools.partial(
+            self.saved[1], flash_threshold=self.threshold)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as attn
+        attn.sequence_attention, attn.attention_block = self.saved
+
+
+def direct_main_path(tag: str, argv: list) -> tuple[list, int]:
+    """The main path: ``launch/serve.py``'s ``main(argv)`` in direct mode
+    on the card (its default), with the ``flash_attention`` calls
+    counted (the prefill's, where it passes 2,048 positions). Returns
+    the lines it printed and that count."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import serve as serve_cli
+
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    flashes, unpatch = flash_counter()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve_cli.main(argv)
+    finally:
+        unpatch()
+    wall = time.time() - t0
+    lines = out.getvalue().splitlines()
+    assert rc == 0, rc
+    for line in lines:
+        log(f"[{tag}] main: {line}")
+    log(f"[{tag}] main path ``serve.main({' '.join(argv)})``: {wall:.3f} s "
+        f"with the weights' init, {flashes[0]} flash_attention calls, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    torch.cuda.empty_cache()
+    return lines, flashes[0]
+
+
+def direct_checks(tag: str, argv: list, n_params: int, main_lines: list):
+    """The same direct run through ``run_direct`` with the same weights
+    (the tokens must be the main path's), its logits kept: the prefill's
+    last-token logits against a materialized prefill of the same batch,
+    and the decode steps' logits, teacher-forced with the greedy tokens,
+    against one ``forward`` over the frontend, the prompt and the
+    tokens, each within 1e-4 of max |logit|. Returns (cfg, model, args,
+    params, the run)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.runtime import resolve_device
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_items
+
+    args = serve_cli.parse_args(argv)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    device = resolve_device(args.device)
+    params = serve_cli.init_params(model, args, device)
+    n = sum(t.numel() for _, t in tree_items(params))
+    assert n == n_params, n
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        run = serve_cli.run_direct(args, cfg, model, device, params,
+                                   keep_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+    assert main_lines[-1] == ("sampled token ids (first row): "
+                              f"{run['sampled'][0].tolist()}"), \
+        "run_direct left the main path's tokens"
+    B, T, gen = args.batch, args.prompt_len, args.gen
+    log(f"[{tag}] {cfg.name}: {n} parameters, batch {B}, prompt {T} "
+        f"(+{cfg.enc_seq_len} {'patches' if cfg.kind == 'vlm' else 'frames'}"
+        f"), {gen} new tokens: prefill {run['prefill_s']:.3f} s, decode "
+        f"{run['decode_s']:.3f} s = {gen * B / run['decode_s']:.1f} "
+        f"tokens/s, max_memory_allocated {peak} B")
+    feed = {k: torch.as_tensor(v, device=device)
+            for k, v in run["batch"].items()}
+    got = run["logits"]                                 # (B, gen + 1, V)
+    with torch.no_grad(), materialized(1 << 30):
+        lm, _, pos_m = model.prefill(
+            params, feed, dtype=torch.float32, cache_dtype=torch.float32,
+            cache_len=T + gen + (cfg.enc_seq_len if cfg.kind == "vlm"
+                                 else 0))
+    pre_err = float((got[:, :1] - lm).abs().max()) / float(lm.abs().max())
+    assert torch.isfinite(got).all() and pre_err <= LOGIT_TOL, pre_err
+    assert int(pos_m) == T + (cfg.enc_seq_len if cfg.kind == "vlm" else 0)
+    del lm
+    seq = torch.cat([feed["tokens"], torch.as_tensor(
+        run["sampled"], device=device)], dim=1)
+    with torch.no_grad():
+        full, _ = model.forward(params, {**feed, "tokens": seq},
+                                dtype=torch.float32)
+        want = full[:, T - 1:].clone()
+    del full
+    tf_err = float((got - want).abs().max())
+    tf_max = float(want.abs().max())
+    assert got.shape == want.shape == (B, gen + 1, cfg.padded_vocab)
+    assert tf_err <= LOGIT_TOL * tf_max, (tf_err, tf_max)
+    log(f"[{tag}] the prefill's last-token logits against a materialized "
+        f"prefill: max |diff| {pre_err:.3e} of max |logit| (tol "
+        f"{LOGIT_TOL}); the prefill and {gen} decode steps teacher-forced "
+        f"against one forward over {seq.shape[1]} tokens"
+        f"{' behind the patches' if cfg.kind == 'vlm' else ''}: max |diff| "
+        f"{tf_err:.3e} = {tf_err / tf_max:.3e} of max |logit| {tf_max:.3f} "
+        f"(tol {LOGIT_TOL})")
+    del want, got
+    torch.cuda.empty_cache()
+    return cfg, model, args, params, run
+
+
+def hold_flash_loss(tag: str, model, params, batch: dict,
+                    flash_calls: int) -> None:
+    """The loss, the logits and every parameter's gradient of ``batch``
+    through ``flash_attention`` against the materialized attention, as
+    [flash] holds them: loss rtol 1e-4, logits 1e-4 of max |logit|,
+    gradient relative L2 1e-4."""
+    import torch
+    from repro_torch.models.common import softmax_cross_entropy, tree_leaves
+
+    leaves = tree_leaves(params)
+
+    def loss_and_grads():
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        logits, _ = model.forward(params, batch, dtype=torch.float32)
+        loss = softmax_cross_entropy(logits, batch["tokens"])
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        return (logits.detach(), float(loss.detach()), grads, wall,
+                torch.cuda.max_memory_allocated())
+
+    flashes, unpatch = flash_counter()
+    try:
+        lf, loss_f, gf, wall_f, peak_f = loss_and_grads()
+    finally:
+        unpatch()
+    assert flashes[0] == flash_calls, flashes
+    with materialized(1 << 30):
+        lm, loss_m, gm, wall_m, peak_m = loss_and_grads()
+    logit_err = float((lf - lm).abs().max()) / float(lm.abs().max())
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gf, gm))
+    den = sum(float((b ** 2).sum()) for b in gm)
+    grad_rel = (num / den) ** 0.5
+    assert np.isfinite(loss_f) and abs(loss_f - loss_m) <= 1e-4 * abs(loss_m)
+    assert logit_err <= LOGIT_TOL, logit_err
+    assert grad_rel <= 1e-4, grad_rel
+    positions = batch["tokens"].shape[1] + (
+        batch["patches"].shape[1] if "patches" in batch else 0)
+    log(f"[{tag}] loss and gradient of one {positions}-position sequence: "
+        f"through flash_attention ({flashes[0]} calls) {loss_f:.6f} vs "
+        f"materialized {loss_m:.6f}; logits max |diff| {logit_err:.3e} of "
+        f"max |logit| (tol {LOGIT_TOL}); gradient relative L2 "
+        f"{grad_rel:.3e} (tol 1e-4); forward + backward {wall_f:.3f} s, "
+        f"max_memory_allocated {peak_f} B through flash; {wall_m:.3f} s, "
+        f"{peak_m} B materialized")
+    del lf, lm, gf, gm
+    torch.cuda.empty_cache()
+
+
+def direct_card_vs_cpu(tag: str, arch: str, card: str = "cuda") -> None:
+    """A reduced config's direct run on the card (``card``) against the
+    same run on the CPU, the same weights: logits within 1e-4 of max
+    |logit|, greedy tokens equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    args = serve_cli.parse_args(["--arch", arch, "--reduced", "--batch", "2",
+                                 "--prompt-len", "16", "--gen", "8",
+                                 "--temperature", "0"])
+    small = get_arch(arch).reduced()
+    sm = build_model(small)
+    w_cpu = serve_cli.init_params(sm, args, torch.device("cpu"))
+    w_gpu = tree_map(lambda t: t.to(card), w_cpu)
+    with torch.no_grad():
+        on_card = serve_cli.run_direct(args, small, sm, torch.device(card),
+                                       w_gpu, keep_logits=True)
+        on_cpu = serve_cli.run_direct(args, small, sm, torch.device("cpu"),
+                                      w_cpu, keep_logits=True)
+    err = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+    biggest = float(on_cpu["logits"].abs().max())
+    assert err <= LOGIT_TOL * biggest, (err, biggest)
+    assert np.array_equal(on_card["sampled"], on_cpu["sampled"])
+    log(f"[{tag}] reduced {arch} direct run (batch 2, prompt 16, 8 new "
+        f"tokens) on {card} vs cpu: logits max |diff| {err:.3e} of max "
+        f"|logit| {biggest:.3f} (tol {LOGIT_TOL}), the same greedy tokens")
+
+
+def profile_direct(tag: str, args, cfg, model, params) -> None:
+    """One more direct run of ``args`` under ``torch.profiler``: the
+    device time by kernel and the idle share of its prefill and decode."""
+    import torch
+    from repro_torch.launch import serve as serve_cli
+
+    def once():
+        with torch.no_grad():
+            run = serve_cli.run_direct(args, cfg, model,
+                                       params["embed"].device, params)
+        return run["prefill_s"] + run["decode_s"]
+
+    profile_main_path(once, f"{tag} direct run (prefill and decode)")
+
+
+def phase_vlm(argv: list = VLM_ARGV, n_params: int = VLM_P,
+              profile: bool = False) -> None:
+    """The full paligemma-3b (all 18 layers, random f32 weights from seed
+    0) through the serve CLI's direct mode at batch 8: 256 stub patches
+    and a 1,920-token prompt, 2,176 positions, so the prefill attends
+    through ``flash_attention`` under the prefix mask; 64 greedy tokens.
+    The prefill held to a materialized one, the decode teacher-forced
+    against the forward, one sequence's loss and gradient through flash
+    against the materialized path, and a reduced paligemma on the card
+    against the CPU."""
+    import torch
+
+    lines, flashes = direct_main_path("vlm", argv)
+    cfg, model, args, params, run = direct_checks("vlm", argv, n_params,
+                                                  lines)
+    assert flashes == cfg.num_layers, flashes
+    if profile:
+        profile_direct("vlm", args, cfg, model, params)
+    device = params["embed"].device
+    one = {k: torch.as_tensor(v[:1], device=device)
+           for k, v in run["batch"].items()}
+    hold_flash_loss("vlm", model, params, one, flash_calls=cfg.num_layers)
+    del params
+    torch.cuda.empty_cache()
+    direct_card_vs_cpu("vlm", cfg.name)
+
+
+def phase_audio(argv: list = AUDIO_ARGV, n_params: int = AUDIO_P,
+                long_t: int = AUDIO_LONG_T, profile: bool = False) -> None:
+    """The full whisper-small (12 encoder and 12 decoder layers, 1,500
+    frames; random f32 weights from seed 0) through the serve CLI's
+    direct mode at batch 8, prompt 64, 64 greedy tokens: the prefill held
+    to a materialized one, the decode teacher-forced against the
+    forward; the encoder timed alone; one 4,096-token prompt through a
+    one-shot prefill and through the loss and gradient, its causal
+    self-attention and its cross-attention (1,500 keys padded to 2,048,
+    ``k_len`` 1,500) through ``flash_attention``, against the
+    materialized path; and a reduced whisper on the card against the
+    CPU."""
+    import torch
+    from repro_torch.models.transformer import encode
+
+    lines, flashes = direct_main_path("audio", argv)
+    assert flashes == 0, flashes
+    cfg, model, args, params, run = direct_checks("audio", argv, n_params,
+                                                  lines)
+    if profile:
+        profile_direct("audio", args, cfg, model, params)
+    frames = torch.as_tensor(run["batch"]["frames"],
+                             device=params["embed"].device)
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: encode(params, cfg, frames, torch.float32),
+                         iters=5)
+    log(f"[audio] the encoder over {args.batch} x {cfg.enc_seq_len} frames "
+        f"({cfg.enc_num_layers} layers, f32): {enc_ms:.3f} ms (CUDA "
+        f"events, the mean of 5)")
+
+    # one long prompt: a one-shot prefill through flash against the
+    # materialized prefill, then its loss and gradient
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, long_t))).to(frames.device)
+    long = {"tokens": toks, "frames": frames[:1]}
+    flashes, unpatch = flash_counter()
+    try:
+        with torch.no_grad():
+            lf, _, pos = model.prefill(params, long, dtype=torch.float32,
+                                       cache_dtype=torch.float32)
+    finally:
+        unpatch()
+    # every decoder layer: its self-attention, then its cross block
+    assert flashes[0] == 2 * cfg.num_layers and int(pos) == long_t
+    with torch.no_grad(), materialized(1 << 30):
+        lm, _, _ = model.prefill(params, long, dtype=torch.float32,
+                                 cache_dtype=torch.float32)
+    err = float((lf - lm).abs().max()) / float(lm.abs().max())
+    assert torch.isfinite(lf).all() and err <= LOGIT_TOL, err
+    kc = min(1024, cfg.enc_seq_len)
+    log(f"[audio] one-shot prefill of a {long_t}-token prompt "
+        f"({flashes[0]} flash_attention calls: {cfg.num_layers} causal, "
+        f"{cfg.num_layers} cross over {cfg.enc_seq_len} keys padded to "
+        f"{-(-cfg.enc_seq_len // kc) * kc}) against the materialized "
+        f"prefill: last logits max |diff| "
+        f"{err:.3e} of max |logit| (tol {LOGIT_TOL})")
+    del lf, lm
+    hold_flash_loss("audio", model, params, long,
+                    flash_calls=2 * cfg.num_layers)
+    del params
+    torch.cuda.empty_cache()
+    direct_card_vs_cpu("audio", cfg.name)
 
 
 def obs_dir(name: str) -> Path:
@@ -3744,6 +4061,8 @@ PARTIAL_PHASES = {
     "serve-hybrid": phase_serve_hybrid,
     "serve-moe": phase_serve_moe,
     "flash": phase_flash,
+    "vlm": phase_vlm,
+    "audio": phase_audio,
     "obs": phase_obs,
 }
 
@@ -3824,6 +4143,9 @@ def main() -> int:
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
                                               profile=profile)}
     timed("forward-ssm", phase_forward_ssm)
+    # the vlm and audio kinds in direct serving (no kernel on their path)
+    timed("vlm", phase_vlm, profile=profile)
+    timed("audio", phase_audio, profile=profile)
     # the instrumented paths (spans, metrics stream, probes, profiler,
     # checkpoint), each held to its bare run above
     for name, n in timed("obs", phase_obs, slice_run, scale_bare,

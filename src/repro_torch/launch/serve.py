@@ -43,15 +43,24 @@ Examples:
       --requests 8 --prefill-chunk 256 --temperature 0   # on the card
   python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \
       --reduced --scheduler paged --temperature 0 --device cpu
+  python -m repro_torch.launch.serve --arch paligemma-3b --batch 8 \
+      --prompt-len 1920 --gen 64 --temperature 0       # on the card
+  python -m repro_torch.launch.serve --arch whisper-small --reduced \
+      --temperature 0 --device cpu
 
 In the scheduler modes ``--trace-dir D`` writes the Chrome trace of the
 scheduler's spans (``D/trace.json``), one ``request`` record per retired
 request in ``D/metrics.jsonl`` and ``D/manifest.json``; ``--profile``
 adds a ``torch.profiler`` trace in ``D/torch_profile/trace.json``.
 
-Other ``--arch`` kinds raise: vlm and audio (ROADMAP.md Queue 1 item
-6c). Not ported yet, and refused with the ROADMAP.md item that brings
-them: ``--mesh`` and ``--host-devices`` (Queue 1 item 8).
+The vlm kind (``--arch paligemma-3b``: 256 stub patch embeddings before
+the prompt under a prefix-LM mask) and the audio kind (``--arch
+whisper-small``: an encoder over 1,500 stub frames, cross-attention in
+every decoder layer) run in direct mode only, their frontend's
+embeddings drawn as standard normal x 0.1 from ``--seed``; the request
+schedulers serve tokens only and refuse them, as the reference's do.
+Not ported yet, and refused with the ROADMAP.md item that brings them:
+``--mesh`` and ``--host-devices`` (Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -184,29 +193,60 @@ def _run_scheduler(args, cfg, model, device):
     return 0
 
 
-def _run_direct(args, cfg, model, device):
+def direct_batch(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """Direct mode's inputs as numpy arrays, drawn from
+    ``numpy.random.default_rng(seed + 1)``: the prompt tokens (batch,
+    prompt_len), then the stub frontend's embeddings the kind needs,
+    standard normal x 0.1 in float32 — ``patches`` (vlm) or ``frames``
+    (encdec, audio), (batch, enc_seq_len, d_model)."""
+    from repro_torch.models.transformer import ENCODER_KINDS
+
+    rng = np.random.default_rng(seed + 1)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  size=(batch, prompt_len))}
+    name = ("patches" if cfg.kind == "vlm" else
+            "frames" if cfg.kind in ENCODER_KINDS else None)
+    if name:
+        out[name] = rng.standard_normal(
+            (batch, cfg.enc_seq_len, cfg.d_model),
+            dtype=np.float32) * np.float32(0.1)
+    return out
+
+
+def run_direct(args, cfg, model, device, params=None, *,
+               keep_logits: bool = False) -> dict:
+    """Direct mode: one fixed batch (:func:`direct_batch`), a joint
+    prefill (the cache sized for the prompt, the new tokens and the vlm
+    kind's patches) and ``--gen`` lockstep decode steps, in float32.
+    Returns the batch, the sampled tokens (B, gen), the seconds of the
+    prefill and of the decode (each ending in a device sync) and, with
+    ``keep_logits``, the prefill's last-token logits and each decode
+    step's, (B, gen + 1, V) on the device (the last row follows the
+    last sampled token)."""
     import torch
     from repro_torch.serving import sample_tokens
 
-    params = init_params(model, args, device)
+    if params is None:
+        params = init_params(model, args, device)
     B, T = args.batch, args.prompt_len
-    tokens = np.random.default_rng(args.seed + 1).integers(
-        0, cfg.vocab_size, size=(B, T))
+    batch = direct_batch(cfg, B, T, args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    total = T + args.gen
+    total = T + args.gen + (cfg.enc_seq_len if cfg.kind == "vlm" else 0)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    sync()
     t0 = time.time()
     logits, cache, pos = model.prefill(
-        params, {"tokens": torch.as_tensor(tokens, device=device)},
+        params, {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()},
         dtype=torch.float32, cache_dtype=torch.float32, cache_len=total,
         use_kernel=device.type == "cuda")
     sync()
     t_prefill = time.time() - t0
-    out_tokens = []
+    out_tokens, kept = [], [logits]
     t0 = time.time()
     for _ in range(args.gen):
         tok = sample_tokens(logits, temperature=args.temperature,
@@ -214,14 +254,26 @@ def _run_direct(args, cfg, model, device):
         out_tokens.append(tok[:, 0].cpu().numpy())
         logits, cache = model.decode_step(params, tok, cache, pos,
                                           dtype=torch.float32)
+        if keep_logits:
+            kept.append(logits)
         pos = pos + 1
     sync()
     t_decode = time.time() - t0
-    sampled = np.stack(out_tokens, axis=1)
-    print(f"arch={cfg.name} B={B} prompt={T} gen={args.gen} devices=1")
-    print(f"prefill: {t_prefill:.2f}s  decode: {t_decode:.2f}s "
+    out = {"batch": batch, "sampled": np.stack(out_tokens, axis=1),
+           "prefill_s": t_prefill, "decode_s": t_decode}
+    if keep_logits:
+        out["logits"] = torch.cat(kept, dim=1)
+    return out
+
+
+def _run_direct(args, cfg, model, device):
+    run = run_direct(args, cfg, model, device)
+    B, t_decode = args.batch, run["decode_s"]
+    print(f"arch={cfg.name} B={B} prompt={args.prompt_len} gen={args.gen} "
+          f"devices=1")
+    print(f"prefill: {run['prefill_s']:.2f}s  decode: {t_decode:.2f}s "
           f"({args.gen * B / max(t_decode, 1e-9):.1f} tok/s)")
-    print("sampled token ids (first row):", sampled[0].tolist())
+    print("sampled token ids (first row):", run["sampled"][0].tolist())
     return 0
 
 

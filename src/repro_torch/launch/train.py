@@ -55,9 +55,11 @@ Examples:
 
 ``--mode scale`` runs the dense, ssm, hybrid and moe (``--arch
 llama4-scout-17b-a16e``, ``llama4-maverick-400b-a17b``; the loss adds
-the routers' load-balance and z-losses) kinds. Not ported yet, and
-refused with the ROADMAP.md item that brings it: ``--arch`` of the vlm
-or audio kind (Queue 1 item 6c).
+the routers' load-balance and z-losses) kinds. The scale trainer feeds
+token batches only, so an ``--arch`` of the vlm or audio kind
+(paligemma-3b, whisper-small) raises ``ValueError``: the reference's
+fails on the missing patches / frames. Serve those with
+``python -m repro_torch.launch.serve``.
 """
 from __future__ import annotations
 

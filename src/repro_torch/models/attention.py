@@ -1,6 +1,7 @@
 """Attention for the model zoo, training path — the port of the train/
 prefill part of ``repro/models/attention.py``: GQA/MQA/MHA with RoPE,
-QKV bias, causal / sliding-window / prefix-LM / full masks.
+QKV bias, causal / sliding-window / prefix-LM / full masks, and
+cross-attention (``attention_block(kv_source=)``).
 
 Layouts are the reference's: queries ``(B, T, K, G, hd)`` (K kv heads,
 G = query heads per kv head), keys and values ``(B, T, K, hd)``, and
@@ -17,7 +18,9 @@ pair-scheduled variant (``flash_attention_pairs``), which only its
 dry-run switches on, is not ported (ROADMAP.md Queue 1 item 8).
 
 The decode paths of serving are here too: the ring cache
-(:func:`init_cache`, :func:`decode_attention`) and the paged cache
+(:func:`init_cache`, :func:`decode_attention`; the cross-attention step
+of the encdec and audio kinds, :func:`decode_cross_attention`, over the
+encoder's cached K/V) and the paged cache
 (:func:`init_paged_cache`, :func:`paged_decode_attention`, whose
 attention runs in the ``paged_decode`` kernel or its plain version).
 Unlike the reference, which returns new caches, the port writes K/V
@@ -291,14 +294,17 @@ def _project_kv(p, cfg, x: torch.Tensor):
 def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
                     window: int = 0, prefix_len=None,
                     positions: Optional[torch.Tensor] = None,
+                    kv_source: Optional[torch.Tensor] = None,
                     flash_threshold: int = 2048) -> torch.Tensor:
-    """Self-attention over a full sequence (training). x: (B, T, d) ->
-    (B, T, d); past ``flash_threshold`` tokens through
-    :func:`flash_attention`."""
+    """Self- (or cross-) attention over a full sequence (training,
+    prefill). x: (B, T, d) -> (B, T, d); ``kv_source`` (B, S, d): the
+    keys and values are projected from it, without RoPE (the
+    cross-attention of the encdec and audio kinds, mode ``full``). Past
+    ``flash_threshold`` queries or keys through :func:`flash_attention`."""
     B, T, _ = x.shape
     q = _project_q(p, cfg, x)
-    k, v = _project_kv(p, cfg, x)
-    if cfg.rope:
+    k, v = _project_kv(p, cfg, x if kv_source is None else kv_source)
+    if cfg.rope and kv_source is None:
         pos = positions if positions is not None \
             else torch.arange(T, device=x.device)
         q = rope(q.reshape(B, T, -1, cfg.head_dim), pos,
@@ -478,7 +484,25 @@ def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     return out @ p["wo"].to(x.dtype), cache
 
 
+def decode_cross_attention(p, cfg, x: torch.Tensor, cross_k: torch.Tensor,
+                           cross_v: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention step: x (B, 1, d) attends, unmasked, to
+    the encoder's cached keys and values ``cross_k``/``cross_v`` (B, S,
+    K, hd), projected once at prefill; the cache is only read."""
+    B = x.shape[0]
+    q = _project_q(p, cfg, x)
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("btkgh,bskh->bkgts", (q * scale).float(),
+                     cross_k.to(q.dtype).float())    # (B,K,G,1,S)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", w,
+                       cross_v.to(q.dtype).float()).to(x.dtype)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype)
+
+
 __all__ = ["NEG_INF", "attention_block", "decode_attention",
+           "decode_cross_attention",
            "flash_attention", "init_attention", "init_cache",
            "init_paged_cache", "last_writers", "page_flat_index",
            "paged_decode_attention",

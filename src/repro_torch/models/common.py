@@ -198,6 +198,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
+def sinusoidal_positions(T: int, dim: int, *, device) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (T, dim), float32: the
+    sines then the cosines of ``t * 10000^(-i / (dim/2 - 1))``, the
+    constant ``log(10000)`` rounded from float64 as the reference's
+    ``np.log`` is."""
+    half = dim // 2
+    c = torch.tensor(-np.log(10_000.0), dtype=torch.float32, device=device)
+    freq = torch.exp(c * torch.arange(half, dtype=torch.float32,
+                                      device=device) / max(half - 1, 1))
+    ang = torch.arange(T, dtype=torch.float32,
+                       device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
@@ -216,7 +230,7 @@ def softmax_cross_entropy(logits: torch.Tensor,
 __all__ = [
     "Px", "apply_norm", "dense_init", "embed_init", "layernorm",
     "apply_rope", "norm_init", "ones_init", "params_from_jax", "rmsnorm",
-    "rope", "rope_angles",
+    "rope", "rope_angles", "sinusoidal_positions",
     "softmax_cross_entropy",
     "split_tree", "tree_from_items", "tree_items", "tree_leaves",
     "tree_map", "zeros_init",

@@ -1,5 +1,6 @@
-"""The model stack — the port of the ``dense``, ``moe``, ``ssm`` and
-``hybrid`` kinds of ``repro/models/transformer.py``.
+"""The model stack — the port of ``repro/models/transformer.py``, every
+arch kind: ``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``, ``encdec``
+and ``audio``.
 
 Per-layer parameters stay stacked on a leading ``layers`` axis, as in
 the reference, so the leaves, their order and a flat buffer's offsets
@@ -10,7 +11,15 @@ the hybrid kind (RecurrentGemma: RG-LRU blocks and local attention 2:1)
 ``groups`` of ``{rec_0, rec_1, attn}`` and a ``tail`` of the remaining
 recurrent layers; the moe kind with an MoE FFN every ``moe_every > 1``
 layers (llama4-maverick) ``groups`` of ``{dense_0, ..., moe}``, and with
-one in every layer (llama4-scout) a plain ``layers`` stack.
+one in every layer (llama4-scout) a plain ``layers`` stack. The vlm kind
+(PaliGemma) stacks plain ``layers`` and runs a prefix LM over the stub
+vision frontend's patch embeddings (``batch["patches"]``, (B,
+enc_seq_len, d)) put before the scaled text embeddings; only the text
+positions are unembedded. The encdec and audio kinds (Whisper) stack an
+encoder, ``enc_layers`` and ``enc_ln_final``, over the stub frontend's
+frames (``batch["frames"]``) plus sinusoidal positions, and a decoder,
+``layers``, whose layers carry a cross-attention block (``ln_cross``,
+``cross``) over the encoder's output.
 :func:`walk_layers` walks any of these layouts in the model's order. The
 reference's activation rematerialization (``remat``) changes no number;
 the port leaves it out and takes no ``remat`` option.
@@ -20,8 +29,6 @@ each the mean over the MoE layers, and :func:`loss_fn` adds them with
 the reference's weights. The ssm kind (Mamba-2,
 :mod:`repro_torch.models.ssm`) takes ``use_kernel``, the reference's
 ``use_pallas``: its scans through the forward-only ``ssd_scan`` kernel.
-The vlm, encdec and audio kinds raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -36,28 +43,21 @@ from repro_torch.models import moe as moem
 from repro_torch.models import rglru as rgm
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
-    Px, apply_norm, embed_init, norm_init, softmax_cross_entropy,
-    split_tree, tree_from_items, tree_items)
+    Px, apply_norm, embed_init, norm_init, sinusoidal_positions,
+    softmax_cross_entropy, split_tree, tree_from_items, tree_items)
 
-
-PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
-# the ROADMAP.md Queue 1 item that brings each kind still to port
-_ITEM = {"vlm": "6c", "encdec": "6c", "audio": "6c"}
-
-
-def require_ported(cfg) -> None:
-    if cfg.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the {', '.join(PORTED_KINDS)} "
-            f"kinds; the {cfg.kind!r} kind is not ported yet (ROADMAP.md "
-            f"Queue 1 item {_ITEM.get(cfg.kind, '6c')})")
+# the kinds with an encoder and cross-attention decoder layers
+ENCODER_KINDS = ("encdec", "audio")
+# the kinds fed a stub frontend's embeddings beside the tokens
+FRONTEND_KINDS = ("vlm",) + ENCODER_KINDS
 
 
 # ---------------------------------------------------------------------------
 # the layer
 # ---------------------------------------------------------------------------
 
-def init_dense_layer(gen, cfg, *, device, use_moe: bool = False) -> dict:
+def init_dense_layer(gen, cfg, *, device, use_moe: bool = False,
+                     cross: bool = False) -> dict:
     p = {
         "ln_attn": norm_init(cfg, cfg.d_model, device=device),
         "attn": attn.init_attention(gen, cfg, device=device),
@@ -66,6 +66,9 @@ def init_dense_layer(gen, cfg, *, device, use_moe: bool = False) -> dict:
     p["moe" if use_moe else "mlp"] = (
         moem.init_moe(gen, cfg, device=device) if use_moe
         else mlpm.init_mlp(gen, cfg, device=device))
+    if cross:
+        p["ln_cross"] = norm_init(cfg, cfg.d_model, device=device)
+        p["cross"] = attn.init_attention(gen, cfg, device=device)
     return p
 
 
@@ -78,13 +81,26 @@ def apply_ffn(p, cfg, h: torch.Tensor, token_mask=None):
     return mlpm.apply_mlp(p["mlp"], cfg, h), None
 
 
+def apply_cross(p, cfg, x: torch.Tensor, enc_out) -> torch.Tensor:
+    """A decoder layer's cross-attention block, where it has one: x plus
+    the unmasked attention of its normed input over ``enc_out``."""
+    if "cross" not in p:
+        return x
+    h = apply_norm(cfg, p["ln_cross"], x)
+    return x + attn.attention_block(p["cross"], cfg, h, mode="full",
+                                    kv_source=enc_out)
+
+
 def apply_dense_layer(p, cfg, x: torch.Tensor, *, mode: str = "causal",
-                      window: int = 0, prefix_len=None, positions=None):
-    """-> (x, the MoE FFN's aux, or None for an MLP layer)."""
+                      window: int = 0, prefix_len=None, positions=None,
+                      enc_out=None):
+    """-> (x, the MoE FFN's aux, or None for an MLP layer). A layer with
+    ``cross`` attends to ``enc_out`` between its self-attention and its
+    FFN."""
     h = apply_norm(cfg, p["ln_attn"], x)
     h = attn.attention_block(p["attn"], cfg, h, mode=mode, window=window,
                              prefix_len=prefix_len, positions=positions)
-    x = x + h
+    x = apply_cross(p, cfg, x + h, enc_out)
     y, aux = apply_ffn(p, cfg, apply_norm(cfg, p["ln_mlp"], x))
     return x + y, aux
 
@@ -172,7 +188,6 @@ def _stack(init_one: Callable[[], dict], n: int) -> dict:
 
 def init_model(gen, cfg, *, device) -> dict:
     """Full parameter tree (Px leaves), float32."""
-    require_ported(cfg)
     V = cfg.padded_vocab
     p: dict[str, Any] = {
         "embed": embed_init(gen, V, cfg.d_model, ("vocab", "embed_nomodel"),
@@ -182,6 +197,15 @@ def init_model(gen, cfg, *, device) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, V, cfg.d_model,
                                   ("vocab", "embed_nomodel"), device=device)
+    if cfg.kind in ENCODER_KINDS:
+        p["enc_layers"] = _stack(
+            lambda: init_dense_layer(gen, cfg, device=device),
+            cfg.enc_num_layers)
+        p["enc_ln_final"] = norm_init(cfg, cfg.d_model, device=device)
+        p["layers"] = _stack(
+            lambda: init_dense_layer(gen, cfg, device=device, cross=True),
+            cfg.num_layers)
+        return p
     layout = group_layout(cfg)
     if layout is None:
         if cfg.kind == "ssm":
@@ -245,10 +269,12 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
 def walk_layers(cfg, *trees: dict) -> Iterator[tuple]:
     """The model's layers in order, as ``(layer kind, the layer's view of
     each tree)`` with kind "attn", "ssm" or "rec" (an MoE layer is an
-    "attn" layer whose FFN is ``moe``). ``trees`` share the stack layout
-    of :func:`init_model` (the parameters, a cache): ``layers``, or the
-    ``groups`` of :func:`group_layout` and then a ``tail``. The views
-    write through to the stacks."""
+    "attn" layer whose FFN is ``moe``; a decoder layer of the encdec and
+    audio kinds an "attn" layer with ``cross``). ``trees`` share the
+    stack layout of :func:`init_model` (the parameters, a cache):
+    ``layers``, or the ``groups`` of :func:`group_layout` and then a
+    ``tail``; the encoder's ``enc_layers`` are not walked (see
+    :func:`encode`). The views write through to the stacks."""
     layout = group_layout(cfg)
     if layout is None:
         kind = "ssm" if cfg.kind == "ssm" else "attn"
@@ -279,15 +305,59 @@ def attention_mode(cfg, serve_window: int = 0) -> tuple[str, int]:
     return "causal", 0
 
 
+def encode(p, cfg, frames: torch.Tensor, dtype) -> torch.Tensor:
+    """The encoder of the encdec and audio kinds: the stub frontend's
+    frames (B, S, d) plus sinusoidal positions, through ``enc_layers``
+    (unmasked self-attention) and ``enc_ln_final``."""
+    S = frames.shape[1]
+    h = frames.to(dtype) + sinusoidal_positions(
+        S, cfg.d_model, device=frames.device).to(dtype)[None]
+    for lp in _unstack(p["enc_layers"], cfg.enc_num_layers):
+        h, _ = apply_dense_layer(lp, cfg, h, mode="full")
+    return apply_norm(cfg, p["enc_ln_final"], h)
+
+
+def decoder_positions(cfg, x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d) of the encdec and audio kinds' decoder plus its
+    sinusoidal positions where the arch has no RoPE."""
+    if cfg.rope:
+        return x
+    return x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                    device=x.device).to(x.dtype)[None]
+
+
+def embed_inputs(p, cfg, batch, dtype):
+    """The first layer's input and what the frontends change, as the
+    reference's forward and prefill do: -> (x, mask, enc_out). x is the
+    embedded tokens (B, T, d); for the vlm kind the stub patches
+    (``batch["patches"]``, (B, enc_seq_len, d)) go before them, after
+    ``scale_embed``, and mask is ("prefix", 0, enc_seq_len); for the
+    encdec and audio kinds ``enc_out`` is the encoder's output over
+    ``batch["frames"]``, x gets its sinusoidal positions and mask is
+    ("causal", 0, None). Otherwise mask and enc_out are None (the kind's
+    own :func:`attention_mode`)."""
+    x = _embed_tokens(p, cfg, batch["tokens"], dtype)
+    if cfg.kind == "vlm":
+        patches = batch["patches"].to(device=x.device, dtype=dtype)
+        return (torch.cat([patches, x], dim=1),
+                ("prefix", 0, cfg.enc_seq_len), None)
+    if cfg.kind in ENCODER_KINDS:
+        enc_out = encode(p, cfg, batch["frames"].to(x.device), dtype)
+        return decoder_positions(cfg, x), ("causal", 0, None), enc_out
+    return x, None, None
+
+
 def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
     """Full-sequence forward -> (logits, aux_losses).
-    batch: {"tokens": (B, T) int}. ``aux_losses``: the moe kind's
+    batch: {"tokens": (B, T) int}, and the stub frontends' embeddings:
+    ``patches`` (B, enc_seq_len, d) for the vlm kind, ``frames`` (B,
+    enc_seq_len, d) for the encdec and audio kinds. The logits are the
+    text positions' (B, T, V). ``aux_losses``: the moe kind's
     ``load_balance`` and ``router_z``, each the mean over the MoE layers;
     empty for the other kinds. ``use_kernel`` (ssm kind): the scans
     through the forward-only ``ssd_scan`` kernel."""
-    require_ported(cfg)
-    x = _embed_tokens(p, cfg, batch["tokens"], dtype)
-    mode, window = attention_mode(cfg)
+    x, mask, enc_out = embed_inputs(p, cfg, batch, dtype)
+    mode, window, prefix_len = mask or (*attention_mode(cfg), None)
     auxs = []
     for kind, lp in walk_layers(cfg, p):
         if kind == "ssm":
@@ -295,10 +365,14 @@ def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
         elif kind == "rec":
             x = apply_rec_layer(lp, cfg, x)
         else:
-            x, aux = apply_dense_layer(lp, cfg, x, mode=mode, window=window)
+            x, aux = apply_dense_layer(lp, cfg, x, mode=mode, window=window,
+                                       prefix_len=prefix_len,
+                                       enc_out=enc_out)
             if aux is not None:
                 auxs.append(aux)
     x = apply_norm(cfg, p["ln_final"], x)
+    if prefix_len:
+        x = x[:, prefix_len:]                # the text positions only
     aux_losses = {k: torch.stack([a[k] for a in auxs]).mean()
                   for k in ("load_balance", "router_z")} if auxs else {}
     return _unembed(p, cfg, x), aux_losses
@@ -320,8 +394,9 @@ def init_tree(gen, cfg, *, device) -> tuple[dict, dict]:
     return split_tree(init_model(gen, cfg, device=device))
 
 
-__all__ = ["PORTED_KINDS", "apply_dense_layer", "apply_ffn",
-           "apply_rec_layer", "apply_ssm_layer", "attention_mode", "forward",
-           "group_layout", "hybrid_layout", "init_dense_layer", "init_model",
-           "init_rec_layer", "init_ssm_layer", "init_tree", "loss_fn",
-           "require_ported", "walk_layers"]
+__all__ = ["ENCODER_KINDS", "FRONTEND_KINDS", "apply_cross",
+           "apply_dense_layer", "apply_ffn", "apply_rec_layer",
+           "apply_ssm_layer", "attention_mode", "decoder_positions",
+           "embed_inputs", "encode", "forward", "group_layout", "hybrid_layout",
+           "init_dense_layer", "init_model", "init_rec_layer",
+           "init_ssm_layer", "init_tree", "loss_fn", "walk_layers"]

@@ -1,5 +1,5 @@
-"""Serving runtime for the dense, moe, ssm and hybrid kinds — the port
-of ``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
+"""Serving runtime for every arch kind — the port of
+``repro/serving/engine.py``: KV and recurrent-state caches, prefill,
 single-token decode, and the paged cache's chunked prefill and page-map
 decode.
 
@@ -16,7 +16,10 @@ pool ``(layers, num_pages, page_size, K, hd)`` shared by every slot
 Recurrent layers keep per-slot state in both caches and no pages: the
 ssm kind's ``h`` (slots, H, S, P) float32 and conv contexts
 ``conv_x``/``conv_B``/``conv_C``, an RG-LRU layer's ``h`` (slots, w)
-float32 and ``conv``.
+float32 and ``conv``. A decoder layer of the encdec and audio kinds
+adds ``cross_k``/``cross_v`` (B, enc_seq_len, K, hd) to its ring cache:
+the encoder output's keys and values, written once by the prefill and
+only read by the decode's cross-attention step.
 
 The reference threads the cache through ``lax.scan`` and returns a new
 one from every step. The port walks the layers with a Python loop over
@@ -31,9 +34,16 @@ The moe kind routes as the reference does: a one-shot prefill with
 ``lengths`` and a paged chunk mask their pad tokens out of the MoE
 routing (each row its own group, so a request routes as it would
 alone), while both decodes route every slot of the batch, live or not,
-as one group at the config's capacity factor. The dense, moe, ssm and
-hybrid kinds are ported; the other kinds raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 item 6c. A
+as one group at the config's capacity factor. The vlm kind's prefill
+puts the stub patch embeddings (``batch["patches"]``) before the
+prompt under the prefix mask, so its cache, RoPE positions and ``pos``
+count the prefix; the encdec and audio kinds' prefill runs the encoder
+over ``batch["frames"]`` once, and their decode adds each slot's
+sinusoidal position. Under ``serve_window`` both keep the reference's
+prefill masks (the vlm prefix mask and the audio causal mask, at window
+0) while the ring decode slides. The paged cache and the request
+schedulers serve tokens only and refuse these three kinds, as the
+reference's do. A
 one-shot prefill past 2048 tokens attends through the chunked
 ``flash_attention`` (the reference's branch); a paged chunk attends to
 its slot's gathered pages, materialized. ``use_kernel`` on
@@ -54,8 +64,8 @@ from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
     apply_norm, apply_rope, tree_items, tree_leaves)
 from repro_torch.models.transformer import (
-    _embed_tokens, _unembed, apply_ffn, attention_mode, group_layout,
-    require_ported, walk_layers)
+    ENCODER_KINDS, _embed_tokens, _unembed, apply_cross, apply_ffn,
+    attention_mode, embed_inputs, group_layout, walk_layers)
 
 # the kinds the paged design serves (the reference's, every one ported)
 PAGED_KINDS = ("dense", "moe", "ssm", "hybrid")
@@ -67,7 +77,6 @@ def _require_paged(cfg) -> None:
         raise ValueError(
             f"paged serving is token-only; arch kind {cfg.kind!r} is "
             "not served by the request schedulers")
-    require_ported(cfg)
 
 
 def _stack_leaves(one: dict, n: int) -> dict:
@@ -135,13 +144,23 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state;
     hybrid: ``{"groups": {"rec_0", "rec_1": {"h", "conv"}, "attn":
     {"k", "v"}}, "tail": {"h", "conv"}}``; moe with ``moe_every > 1``:
-    ``{"groups": {"dense_0", ..., "moe": {"k", "v"}}}``), on ``device``
+    ``{"groups": {"dense_0", ..., "moe": {"k", "v"}}}``; encdec and
+    audio: ``{"layers": {"k", "v", "cross_k", "cross_v"}}``, the cross
+    leaves ``(layers, batch, enc_seq_len, K, hd)``), on ``device``
     (default: the CUDA device)."""
-    require_ported(cfg)
     device = resolve_device(device)
     S = cache_len_for(cfg, seq_len, serve_window)
+
+    def attn_cache():
+        c = attn.init_cache(cfg, batch, S, dtype, device=device)
+        if cfg.kind in ENCODER_KINDS:
+            cross = attn.init_cache(cfg, batch, cfg.enc_seq_len, dtype,
+                                    device=device)
+            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+        return c
+
     return _cache_tree(cfg, {
-        "attn": lambda: attn.init_cache(cfg, batch, S, dtype, device=device),
+        "attn": attn_cache,
         "ssm": lambda: ssmm.init_ssm_cache(cfg, batch, dtype, device=device),
         "rec": lambda: rgm.init_rglru_cache(cfg, batch, dtype,
                                             device=device)})
@@ -197,17 +216,26 @@ def _rotate(q: torch.Tensor, k: torch.Tensor, rotary):
 
 
 def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
-                        window: int, rotary, lengths=None) -> torch.Tensor:
+                        window: int, rotary, lengths=None, prefix_len=None,
+                        enc_out=None) -> torch.Tensor:
     """Dense (or MoE) layer forward that also writes its KV ring-cache
     slice ``c`` in place; with ``lengths`` the pad tokens take no part in
-    the MoE routing."""
+    the MoE routing. A decoder layer with ``cross`` attends to
+    ``enc_out`` and writes the encoder's keys and values into
+    ``cross_k``/``cross_v``."""
     B, T, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
     q, k = _rotate(attn._project_q(lp["attn"], cfg, h), k, rotary)
-    out = attn.sequence_attention(q, k, v, mode=mode, window=window)
+    out = attn.sequence_attention(q, k, v, mode=mode, window=window,
+                                  prefix_len=prefix_len)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
-    x = x + out @ lp["attn"]["wo"].to(x.dtype)
+    x = apply_cross(lp, cfg, x + out @ lp["attn"]["wo"].to(x.dtype),
+                    enc_out)
+    if "cross" in lp:
+        ek, ev = attn._project_kv(lp["cross"], cfg, enc_out)
+        c["cross_k"].copy_(ek)
+        c["cross_v"].copy_(ev)
     tmask = None if lengths is None else (
         torch.arange(T, device=x.device)[None, :] < lengths[:, None])
     y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x), tmask)
@@ -293,22 +321,36 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
     int32 vector (a 0-d int32 tensor when ``lengths`` is None).
 
     ``use_kernel`` (ssm kind): the SSD scans through the ``ssd_scan``
-    kernel, one launch per layer. Past 2048 tokens the attention layers
-    attend through ``flash_attention``.
+    kernel, one launch per layer. Past 2048 positions (the vlm kind's
+    patches counted) the attention layers attend through
+    ``flash_attention``.
+
+    The frontends, as the reference's: the vlm kind's ``patches`` (B,
+    enc_seq_len, d) go before the prompt under the prefix mask; the
+    cache holds ``max(cache_len, enc_seq_len + T)`` positions, the RoPE
+    angles run over patches and prompt, ``lengths`` are shifted by the
+    prefix and the returned ``pos`` is ``enc_seq_len + T`` (a slot's
+    ``enc_seq_len + lengths``). The encdec and audio kinds' ``frames``
+    (B, enc_seq_len, d) run through the encoder once; the prompt gets
+    its sinusoidal positions and every decoder layer's ``cross_k``/
+    ``cross_v`` are written in ``cache_dtype``.
     """
-    require_ported(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     device = tokens.device
+    # the frontends' masks keep window 0 under serve_window, as the
+    # reference's do (only the ring decode slides)
+    x, mask, enc_out = embed_inputs(p, cfg, batch, dtype)
+    mode, window, prefix_len = mask or (*attention_mode(cfg, serve_window),
+                                        None)
+    L = x.shape[1]                           # T plus the vlm prefix
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                  device=device).reshape(B)
-    x = _embed_tokens(p, cfg, tokens, dtype)
-    cache = init_cache_tree(cfg, B, max(cache_len or 0, T), cache_dtype,
+                                  device=device).reshape(B) + (L - T)
+    cache = init_cache_tree(cfg, B, max(cache_len or 0, L), cache_dtype,
                             serve_window, device=device)
-    mode, window = attention_mode(cfg, serve_window)
     rotary = (None if cfg.kind == "ssm" else
-              attn.rotary_angles(cfg, torch.arange(T, device=device)))
+              attn.rotary_angles(cfg, torch.arange(L, device=device)))
     for kind, lp, c in walk_layers(cfg, p, cache):
         if kind == "ssm":
             x = _prefill_ssm_layer(lp, cfg, x, c, lengths=lengths,
@@ -317,11 +359,12 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
             x = _prefill_rec_layer(lp, cfg, x, c, lengths=lengths)
         else:
             x = _prefill_attn_layer(lp, cfg, x, c, mode=mode, window=window,
-                                    rotary=rotary, lengths=lengths)
+                                    rotary=rotary, lengths=lengths,
+                                    prefix_len=prefix_len, enc_out=enc_out)
     x = apply_norm(cfg, p["ln_final"], x)
     if lengths is None:
         logits = _unembed(p, cfg, x[:, -1:])
-        return logits, cache, torch.full((), T, dtype=torch.int32,
+        return logits, cache, torch.full((), L, dtype=torch.int32,
                                           device=device)
     # per-slot: logits at each row's last valid token, (B,) positions
     last = torch.clamp(lengths.long() - 1, min=0)
@@ -332,6 +375,20 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 # decode step (ring cache)
 # ---------------------------------------------------------------------------
+
+def _slot_sinusoid(d: int, pos: torch.Tensor) -> torch.Tensor:
+    """Each slot's sinusoidal decoder position (B, 1, d), float32, as the
+    reference's decode step builds it: its ``log(10000)`` taken in
+    float32 (the forward's :func:`~repro_torch.models.common.
+    sinusoidal_positions` rounds it from float64)."""
+    half = d // 2
+    c = -torch.log(torch.tensor(10_000.0, dtype=torch.float32,
+                                device=pos.device))
+    freq = torch.exp(c * torch.arange(half, dtype=torch.float32,
+                                      device=pos.device) / max(half - 1, 1))
+    ang = pos.float()[:, None] * freq                    # (B, half)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None]
+
 
 def _write_state(c: dict, new: dict, live=None) -> None:
     """A recurrent layer's new state into its cache slice, in place; with
@@ -348,7 +405,9 @@ def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend,
                    live=None):
     """The decode stack, every layer's cache updated in place:
     ``attend(layer attn params, normed x, layer cache)`` -> the attention
-    output of an attention layer; an ssm or RG-LRU layer's state through
+    output of an attention layer, followed, in a decoder layer with
+    ``cross``, by the cross-attention step over its cached ``cross_k``/
+    ``cross_v``; an ssm or RG-LRU layer's state through
     :func:`_write_state`; then the logits. An MoE FFN routes all B lanes
     as one group, with no mask, as the reference does."""
     for kind, lp, c in walk_layers(cfg, p, cache):
@@ -366,6 +425,10 @@ def _decode_layers(p, cfg, x: torch.Tensor, cache: dict, attend,
         else:
             h = apply_norm(cfg, lp["ln_attn"], x)
             x = x + attend(lp["attn"], h, c)
+            if "cross" in lp:
+                h = apply_norm(cfg, lp["ln_cross"], x)
+                x = x + attn.decode_cross_attention(
+                    lp["cross"], cfg, h, c["cross_k"], c["cross_v"])
         y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x))
         x = x + y
     x = apply_norm(cfg, p["ln_final"], x)
@@ -379,14 +442,17 @@ def decode_step(p, cfg, token: torch.Tensor, cache: dict, pos, *,
     token: (B, 1) int; cache: tree from init_cache_tree/prefill, updated
     in place; pos: int32 absolute position — a 0-d tensor (all slots
     aligned) or a ``(B,)`` vector of per-slot positions (continuous
-    batching). Returns (logits, cache).
+    batching); the vlm kind's count its patch prefix. The encdec and
+    audio kinds add each slot's sinusoidal position to its token.
+    Returns (logits, cache).
     """
-    require_ported(cfg)
     x = _embed_tokens(p, cfg, token, dtype)
     if _kv_pool(cfg, cache) is None:
         return _decode_layers(p, cfg, x, cache, None), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1).expand(token.shape[0])
+    if cfg.kind in ENCODER_KINDS and not cfg.rope:
+        x = x + _slot_sinusoid(cfg.d_model, pos).to(dtype)
     w = effective_window(cfg, serve_window)
     rotary = attn.rotary_angles(cfg, pos[:, None])
 
@@ -413,9 +479,9 @@ def write_cache_slot(cfg, cache: dict, one_cache: dict, slot: int, *,
     batch axis (axis 1, after the stack's), cast to the live leaf's
     dtype. Optionally also writes ``one_pos`` (0-d or (1,)) into the
     per-slot ``pos`` vector, in place. Returns ``cache`` (and ``pos``
-    when given).
+    when given). The cross leaves of the encdec and audio kinds are
+    copied like the others.
     """
-    require_ported(cfg)
     for (path, dst), (src_path, src) in zip(tree_items(cache),
                                             tree_items(one_cache)):
         assert path == src_path, (path, src_path)

@@ -28,6 +28,10 @@ the device per decode tick: the sampled tokens, which the host needs to
 emit and retire requests. Temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed`` (JAX's streams cannot be
 reproduced), so parity with the reference holds at temperature 0.
+A ``Request`` carries tokens only, so every scheduler refuses the vlm,
+encdec and audio kinds, as the reference's do (their frontends'
+patches and frames have no place in it); they are served in the serve
+CLI's direct mode.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.models.transformer import FRONTEND_KINDS
 from repro_torch.obs.sink import NULL_OBS
 from repro_torch.serving.pages import (
     DUMMY_PAGE, PageTable, PrefixTrie, pages_per_slot)
@@ -126,7 +131,7 @@ class _SchedulerBase:
         if max_prompt > max_total:
             raise ValueError(f"max_prompt {max_prompt} exceeds max_total "
                              f"{max_total}")
-        if model.cfg.kind in ("vlm", "encdec", "audio"):
+        if model.cfg.kind in FRONTEND_KINDS:
             raise ValueError(
                 f"{type(self).__name__} serves token-only requests; "
                 f"arch kind {model.cfg.kind!r} needs frontend inputs "

@@ -26,7 +26,11 @@ equal the reference's. A checkpoint carries the draw source's state
 (``draws.state_dict()``) where the reference carries its key.
 
 The reference's ``donate=True`` is the port's only behaviour: its step
-updates the parameters in place, so ``donate=False`` raises.
+updates the parameters in place, so ``donate=False`` raises. The vlm,
+encdec and audio kinds raise ``ValueError`` at construction: the
+interval batch holds tokens and labels only, and the reference's
+trainer fails on these kinds with a ``KeyError`` on the missing
+``patches`` / ``frames``.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.registry import ModelApi, build_model
-from repro_torch.models.transformer import require_ported
+from repro_torch.models.transformer import FRONTEND_KINDS
 from repro_torch.obs.sink import make_obs
 from repro_torch.obs.telemetry import emit_comm
 from repro_torch.rounds import RoundProgram, RoundResolver
@@ -101,7 +105,14 @@ class ScaleTrainer:
                  hierarchy: Optional[HierarchyConfig] = None,
                  program: Optional[RoundProgram] = None,
                  device: DeviceLike = None):
-        require_ported(cfg)
+        if cfg.kind in FRONTEND_KINDS:
+            # the reference's interval batch carries tokens and labels
+            # only, so its loss fails on batch["patches"] / ["frames"]
+            raise ValueError(
+                f"{cfg.name}: the scale trainer feeds token batches only; "
+                f"the {cfg.kind!r} kind needs frontend inputs (patches/"
+                "frames), as in the reference, whose scale trainer fails "
+                "on them")
         if program is None:
             program = RoundProgram(dynamics=dynamics, hierarchy=hierarchy)
         elif dynamics is not None or hierarchy is not None:

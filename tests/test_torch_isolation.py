@@ -200,3 +200,19 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                              timeout=300)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-small"])
+def test_chip_smoke_direct_comparison_runs_on_the_cpu(arch, capsys):
+    """The reduced comparison of chip_smoke.py's [vlm] and [audio] phases
+    (a direct run on the card against the same run on the CPU) runs here
+    with the CPU standing in for the card, and passes its own check."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    chip_smoke.direct_card_vs_cpu("test", arch, card="cpu")
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(f"[test] reduced {arch} direct run") and \
+        "the same greedy tokens" in line

@@ -484,12 +484,13 @@ def test_prefetch_loader_surfaces_worker_error():
 
 def test_trainer_refuses_unported_options():
     # checkpoints and the observability sink are ported
-    # (tests/test_torch_ckpt.py, tests/test_torch_obs.py); a kind other
-    # than dense, ssm or hybrid is not (whisper's audio kind: item 6c),
-    # and the port's step always updates the parameters in place (the
-    # reference's donate=True)
+    # (tests/test_torch_ckpt.py, tests/test_torch_obs.py); a kind fed a
+    # frontend is refused (the interval batch holds tokens only, and the
+    # reference's trainer fails on whisper's frames), and the port's
+    # step always updates the parameters in place (the reference's
+    # donate=True)
     sc = _scale(dist.TTHFScaleConfig)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+    with pytest.raises(ValueError, match="token batches only"):
         ScaleTrainer(get_arch("whisper-small").reduced(**_KW), sc,
                      TrainerConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown dtype"):

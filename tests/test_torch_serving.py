@@ -636,8 +636,9 @@ def test_non_dense_kinds_and_unported_flags_raise():
     """Kept under its old name: the moe kind is served now (held to the
     reference in tests/test_torch_serve_moe.py), so a reduced llama4 of
     each layout runs a request through the paged scheduler; the vlm and
-    audio kinds still raise, in the schedulers (token-only, as the
-    reference's) and in direct serving (item 6c)."""
+    audio kinds still raise in the schedulers (token-only, as the
+    reference's), and direct serving, once refused (item 6c), runs them
+    (held to the forward in tests/test_torch_serve_vlm_audio.py)."""
     for arch in ("llama4-maverick-400b-a17b", "llama4-scout-17b-a16e"):
         model = build_model(get_arch(arch).reduced(d_model=64, d_ff=128,
                                                    vocab_size=128))
@@ -652,8 +653,9 @@ def test_non_dense_kinds_and_unported_flags_raise():
         model = build_model(get_arch(arch).reduced())
         with pytest.raises(ValueError, match="token-only"):
             PagedContinuousScheduler(model, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu"])
+        assert serve_cli.main(["--arch", arch, "--reduced", "--batch", "2",
+                               "--prompt-len", "8", "--gen", "2",
+                               "--device", "cpu"]) == 0
     # --trace-dir and --profile are ported (tests/test_torch_obs.py)
     for flags, item in ((["--mesh", "host"], "item 8"),
                         (["--host-devices", "8"], "item 8")):

@@ -333,14 +333,18 @@ def test_scale_mode_still_refuses_the_ssm_kind():
     """Kept under its old name: scale mode now runs the ssm kind (held to
     the reference in tests/test_torch_scale.py), the hybrid kind
     (tests/test_torch_scale_hybrid.py) and the moe kind
-    (tests/test_torch_scale_moe.py; a reduced llama4-scout runs here),
-    and refuses the kinds still to port (item 6c) where the model is
-    built."""
+    (tests/test_torch_scale_moe.py; a reduced llama4-scout runs here);
+    the vlm and audio kinds, once refused where the model was built
+    (item 6c), are ported: their parameter trees build (held to the
+    reference's in tests/test_torch_vlm_audio.py), and scale mode refuses
+    them at the trainer."""
     for arch in ("mamba2-370m", "llama4-scout-17b-a16e"):
         assert train_cli.main(["--mode", "scale", "--arch", arch,
                                "--reduced", "--steps", "1", "--tau", "1",
                                "--batch", "1", "--seq", "8",
                                "--device", "cpu"]) == 0
     for arch in ("paligemma-3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-            build_model(get_arch(arch).reduced()).abstract_params()
+        cfg = get_arch(arch).reduced()
+        shapes, axes = build_model(cfg).abstract_params()
+        assert shapes["embed"].shape == (cfg.padded_vocab, cfg.d_model)
+        assert ("enc_layers" in shapes) == (cfg.kind == "audio")

@@ -245,28 +245,33 @@ def test_attention_block_matches_with_bias_and_gqa():
 
 
 def test_unported_kinds_and_long_sequences_raise():
-    """Kept under its old name: the kinds still to port (vlm, audio)
-    raise with item 6c; the moe kind, once refused, now runs (a reduced
-    llama4 of each layout gives a finite loss with both aux terms; held
-    to the reference in tests/test_torch_moe.py); a sequence past 2,048
-    tokens, once refused, now trains through ``flash_attention`` and its
-    loss equals the reference's flash path (rtol 1e-5)."""
+    """Kept under its old name: every kind is ported now. The vlm and
+    audio kinds, once refused (item 6c), give a finite loss over their
+    stub frontends' embeddings (held to the reference in
+    tests/test_torch_vlm_audio.py); the moe kind, once refused, runs (a
+    reduced llama4 of each layout gives a finite loss with both aux
+    terms; held to the reference in tests/test_torch_moe.py); a sequence
+    past 2,048 tokens, once refused, now trains through
+    ``flash_attention`` and its loss equals the reference's flash path
+    (rtol 1e-5)."""
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, 64, size=(2, 8)))
     for name, cfg in ARCHS.items():
         if cfg.kind in ("dense", "ssm", "hybrid"):     # ported earlier
             continue
-        m = build_model(cfg.reduced(d_model=64, d_ff=128, vocab_size=64))
-        if cfg.kind != "moe":
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 6c"):
-                m.init(torch.Generator(), "cpu")
-            continue
+        small = cfg.reduced(d_model=64, d_ff=128, vocab_size=64)
+        m = build_model(small)
         p = m.init(torch.Generator().manual_seed(0), "cpu")
-        _, aux = m.forward(p, {"tokens": toks}, dtype=torch.float32)
-        assert set(aux) == {"load_balance", "router_z"}
-        assert torch.isfinite(m.loss(p, {"tokens": toks, "labels": toks},
-                                     dtype=torch.float32))
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.kind != "moe":
+            front = torch.randn((2, small.enc_seq_len, 64),
+                                generator=torch.Generator().manual_seed(1))
+            batch["patches" if cfg.kind == "vlm" else "frames"] = front
+        logits, aux = m.forward(p, batch, dtype=torch.float32)
+        assert logits.shape == (2, 8, small.padded_vocab)
+        assert set(aux) == ({"load_balance", "router_z"}
+                            if cfg.kind == "moe" else set())
+        assert torch.isfinite(m.loss(p, batch, dtype=torch.float32))
     kw = dict(d_model=64, vocab_size=64)
     cfg = get_arch("qwen1.5-0.5b").reduced(**kw)
     jcfg = j_get_arch("qwen1.5-0.5b").reduced(**kw)

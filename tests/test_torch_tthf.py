@@ -160,13 +160,14 @@ def test_entry_points_refuse_quietly_running_elsewhere(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TTHFTrainer(*args)
     # scale mode runs the dense, moe, ssm and hybrid kinds (a reduced
-    # llama4-maverick here); the vlm and audio kinds are still to port
+    # llama4-maverick here); it feeds token batches only, so it refuses
+    # the vlm and audio kinds (the reference's fails on them)
     assert train_cli.main(["--mode", "scale", "--arch",
                            "llama4-maverick-400b-a17b", "--reduced",
                            "--steps", "1", "--tau", "1", "--batch", "1",
                            "--seq", "8", "--device", "cpu"]) == 0
     for arch in ("paligemma-3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+        with pytest.raises(ValueError, match="token batches only"):
             train_cli.main(["--mode", "scale", "--arch", arch,
                             "--reduced", "--device", "cpu"])
     # --scenario, --hierarchy and --control run in both modes; the CLI
