@@ -237,6 +237,19 @@ caught):
              plain ``ssd_chunked`` (logits within 1e-4 of max |logit|
              over 48 layers); and a reduced mamba2's serve trace on the
              card against the same trace on the CPU (the same tokens).
+7a. serve-mesh — sharded serving through ``--mesh host`` on the one
+             card: a (1, 1) ``DeviceMesh`` of an NCCL world of one rank,
+             params and caches DTensors placed by the serve rules, the
+             models' hints redistributing. The paged trace of phase 6
+             (qwen1.5-0.5b) and the continuous trace of phase 7
+             (mamba2-370m), each cut to 8 requests of 32 new tokens, run
+             bare and on the mesh: every stat equal, tokens by the margin
+             rule of phase 6, ``paged_decode`` (layers x decode steps)
+             and ``ssd_scan`` (layers x prefills) launched on the rank's
+             shard and counted as ``serve-mesh``; qwen's direct path
+             (8 x 512 + 16) teacher-forced, logits within 1e-4 of max
+             |logit| of its bare run. It prints each run's tokens/s and
+             wall and the mesh's overhead.
 7b. vlm   — the serve CLI's direct mode (``launch/serve.py --arch
              paligemma-3b --batch 8 --prompt-len 1920 --gen 64
              --temperature 0``, ``main(argv)`` on the card, random f32
@@ -2666,6 +2679,131 @@ SERVE_ARGV = ["--scheduler", "paged", "--batch", "8", "--prompt-len", "512",
 
 
 # ---------------------------------------------------------------------------
+# sharded serving: the serve paths through a (1, 1) DeviceMesh
+# ---------------------------------------------------------------------------
+
+# [serve-mesh]: the serve and serve-ssm traces cut to 8 requests of 32
+# new tokens, and qwen's direct path, bare and with --mesh host
+SERVE_MESH_CUT = ["--requests", "8", "--gen", "32"]
+SERVE_MESH_DIRECT_ARGV = ["--batch", "8", "--prompt-len", "512", "--gen",
+                          "16", "--temperature", "0"]
+
+
+def phase_serve_mesh(profile: bool = False) -> dict:
+    """Sharded serving on the card: ``--mesh host`` over the one H100 is
+    a (1, 1) ``DeviceMesh`` of an NCCL world of one rank, the params and
+    caches DTensors placed by the serve rules, every op dispatched by
+    DTensor, the ``hint`` calls redistributing, and the two serving
+    kernels launched by each rank on its shard (here: the whole). The
+    qwen1.5-0.5b paged trace and the mamba2-370m continuous trace are
+    run bare and on the mesh: the same stats, and the same tokens up to
+    a near tie of the bare run (``check_tokens``); the direct path's
+    logits within LOGIT_TOL of max |logit| of its bare run, teacher-
+    forced. Logs each run's tokens/s and wall and the mesh's overhead;
+    ``profile`` adds one profiled trace of each, bare and on the mesh.
+    Returns {kernel: launches in the mesh runs}."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.serving import (
+        ContinuousScheduler, PagedContinuousScheduler, shard_params)
+
+    device = torch.device("cuda")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    launches = {}
+    try:
+        args = serve_cli.parse_args(SERVE_ARGV + ["--mesh", "host"])
+        mesh = serve_cli.setup_mesh(args, device)
+        assert tuple(mesh.mesh.shape) == (1, 1), mesh
+        for tag, argv, kernel, cls in (
+                ("qwen paged", SERVE_ARGV, paged_decode,
+                 PagedContinuousScheduler),
+                ("mamba2 continuous", SERVE_SSM_ARGV, ssd_scan,
+                 ContinuousScheduler)):
+            args = serve_cli.parse_args(argv + SERVE_MESH_CUT)
+            cfg = get_arch(args.arch)
+            model = build_model(cfg)
+            params = serve_cli.init_params(model, args, device)
+            sharded = shard_params(params, model, mesh)
+            warm = serve_cli.parse_args(argv + ["--requests", "2", "--gen",
+                                                "4"])
+            for p, m in ((params, None), (sharded, mesh)):
+                serve_cli.run_scheduler_trace(warm, cfg, model, device, p,
+                                              mesh=m)
+            margins, unpatch = record_margins(cls)
+            try:
+                sched, stats, arrivals, wall = serve_cli.run_scheduler_trace(
+                    args, cfg, model, device, params)
+            finally:
+                unpatch()
+            kernel.launches = 0
+            sched_m, stats_m, arr_m, wall_m = serve_cli.run_scheduler_trace(
+                args, cfg, model, device, sharded, mesh=mesh)
+            n = kernel.launches
+            want = cfg.num_layers * (stats_m.decode_steps
+                                     if kernel is paged_decode
+                                     else stats_m.prefills)
+            assert n == want > 0, (tag, n, want)
+            assert trace_stats(stats_m, sched_m) == trace_stats(stats, sched)
+            parted = check_tokens(
+                f"serve-mesh {tag}",
+                {r.rid: list(r.out_tokens) for _, r in arr_m},
+                {r.rid: list(r.out_tokens) for _, r in arrivals}, margins)
+            tps, tps_m = (stats.tokens_generated / wall,
+                          stats_m.tokens_generated / wall_m)
+            log(f"[serve-mesh] {tag} ({cfg.name}, {args.requests} requests, "
+                f"{args.gen} new tokens): bare {wall:.3f} s = {tps:.1f} "
+                f"tokens/s; --mesh host (1, 1) {wall_m:.3f} s = "
+                f"{tps_m:.1f} tokens/s, overhead {wall_m / wall:.2f}x; "
+                f"{stats_m.decode_steps} decode steps, {stats_m.prefills} "
+                f"prefills, {kernel.__name__} launches {n}; every stat "
+                f"equal, tokens equal but for {len(parted)} near-tie "
+                f"partings {parted}")
+            launches[kernel.__name__] = n
+            if profile:
+                for label, p, m in (("bare", params, None),
+                                    ("--mesh host", sharded, mesh)):
+                    profile_main_path(
+                        lambda: serve_cli.run_scheduler_trace(
+                            args, cfg, model, device, p, mesh=m)[3],
+                        f"serve-mesh {tag} {label}")
+            del sched, sched_m, params, sharded
+            torch.cuda.empty_cache()
+
+        # the direct path, teacher-forced with the bare run's tokens
+        args = serve_cli.parse_args(SERVE_MESH_DIRECT_ARGV)
+        cfg = get_arch(args.arch)
+        model = build_model(cfg)
+        params = serve_cli.init_params(model, args, device)
+        bare = serve_cli.run_direct(args, cfg, model, device, params,
+                                    keep_logits=True)
+        sharded = shard_params(params, model, mesh)
+        on = serve_cli.run_direct(args, cfg, model, device, sharded,
+                                  mesh=mesh, keep_logits=True,
+                                  forced=bare["sampled"])
+        want, got = bare["logits"].float(), on["logits"].float()
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        err = float((got - want).abs().max())
+        biggest = float(want.abs().max())
+        assert err <= LOGIT_TOL * biggest, (err, biggest)
+        B, gen = args.batch, args.gen
+        log(f"[serve-mesh] direct qwen1.5-0.5b {B} x {args.prompt_len} + "
+            f"{gen}: logits max |mesh - bare| {err:.3e} of max |logit| "
+            f"{biggest:.3f} (tolerance {LOGIT_TOL}); prefill "
+            f"{bare['prefill_s']:.3f} s bare, {on['prefill_s']:.3f} s mesh;"
+            f" decode {B * gen / bare['decode_s']:.1f} tokens/s bare, "
+            f"{B * gen / on['decode_s']:.1f} tokens/s mesh")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the hybrid kind (recurrentgemma-9b) and the chunked flash_attention
 # ---------------------------------------------------------------------------
 
@@ -4064,6 +4202,7 @@ PARTIAL_PHASES = {
     "vlm": phase_vlm,
     "audio": phase_audio,
     "obs": phase_obs,
+    "serve-mesh": phase_serve_mesh,
 }
 
 
@@ -4143,6 +4282,11 @@ def main() -> int:
     by_path["ssd_scan"] = {"serve-ssm": timed("serve-ssm", phase_serve_ssm,
                                               profile=profile)}
     timed("forward-ssm", phase_forward_ssm)
+    # sharded serving through a (1, 1) mesh: paged_decode and ssd_scan
+    # launched by the rank on its shard
+    for name, n in timed("serve-mesh", phase_serve_mesh,
+                         profile=profile).items():
+        by_path[name]["serve-mesh"] = n
     # the vlm and audio kinds in direct serving (no kernel on their path)
     timed("vlm", phase_vlm, profile=profile)
     timed("audio", phase_audio, profile=profile)

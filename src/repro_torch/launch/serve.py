@@ -59,12 +59,32 @@ whisper-small``: an encoder over 1,500 stub frames, cross-attention in
 every decoder layer) run in direct mode only, their frontend's
 embeddings drawn as standard normal x 0.1 from ``--seed``; the request
 schedulers serve tokens only and refuse them, as the reference's do.
-Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--mesh`` and ``--host-devices`` (Queue 1 item 8).
+
+Sharded serving: ``--mesh host|data|AxB`` serves over a
+``torch.distributed`` ``DeviceMesh`` with dims ``("data", "model")``
+(params tensor-parallel over ``model``, cache leaves along heads, slots
+over ``data``; see :mod:`repro_torch.serving.sharding`). Under
+``torchrun`` the mesh spans the environment's world (NCCL, one card a
+rank; untried: no run on more than one card has been made); without
+it, a world of one rank on the resolved device (NCCL on the card, gloo
+with ``--device cpu``). ``--host-devices N`` (with
+``--device cpu`` only: a card has no simulated devices) runs N gloo
+ranks on the CPU, each with the same arguments, meeting in a
+``FileStore`` of a temporary directory; rank 0 prints the summary:
+  python -m repro_torch.launch.serve --reduced --scheduler continuous \
+      --device cpu --host-devices 4 --mesh data
+  python -m repro_torch.launch.serve --reduced --scheduler paged \
+      --device cpu --host-devices 4 --mesh 2x2
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --mesh host                       # untried
+  python -m repro_torch.launch.serve --scheduler paged --mesh host   # card
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -101,20 +121,89 @@ def make_arrivals(cfg, *, requests: int, prompt_len: int, gen: int,
     return arrivals
 
 
-def init_params(model, args, device):
-    """The model's random weights from ``--seed``."""
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _say(*a) -> None:
+    """Print on rank 0 only: every rank of a sharded run computes the same
+    summary."""
+    if _rank() == 0:
+        print(*a)
+
+
+def init_params(model, args, device, mesh=None):
+    """The model's random weights from ``--seed`` (every rank draws the
+    same), placed on ``mesh`` by the serve rules when one is given."""
     import torch
-    return model.init(torch.Generator(device=device).manual_seed(args.seed),
-                      device)
+    params = model.init(
+        torch.Generator(device=device).manual_seed(args.seed), device)
+    if mesh is None:
+        return params
+    from repro_torch.serving import shard_params
+    return shard_params(params, model, mesh)
 
 
-def run_scheduler_trace(args, cfg, model, device, params=None, **over):
+def mesh_devices(mesh) -> int:
+    """The number of ranks serving (1 without a mesh)."""
+    from repro_torch.launch.mesh import chips_in
+    return 1 if mesh is None else chips_in(mesh)
+
+
+def setup_mesh(args, device):
+    """The serving mesh ``--mesh`` names, or None without it: over the
+    initialized process group (the ``--host-devices`` ranks), the
+    environment's world under ``torchrun``, or else a world of one rank
+    on ``device`` (NCCL on the card, gloo on the CPU; an in-process
+    store, no port)."""
+    if not args.mesh:
+        return None
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    return make_serve_mesh(args.mesh, device.type)
+
+
+def run_on_host_devices(n: int, fn, *args) -> None:
+    """``fn(*args)`` on ``n`` gloo ranks on the CPU (the counterpart of
+    ``n`` simulated host devices): spawned processes meeting in a
+    ``FileStore`` of a temporary directory — no TCP port, so concurrent
+    runs cannot collide — each with ``1/n`` of torch's threads."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_host_rank, args=(n, os.path.join(d, "store"), fn, args),
+                 nprocs=n)
+
+
+def _host_rank(rank: int, n: int, store: str, fn, args) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_scheduler_trace(args, cfg, model, device, params=None, mesh=None,
+                        **over):
     """Build the scheduler the flags name (``over`` adds or replaces its
     keyword arguments, e.g. ``ssd_kernel=False``) and drive the arrival
     trace through it, instrumented when ``--trace-dir`` is given (one
     ``request`` record per retired request; the sink is closed before
-    returning). Returns (scheduler, stats, arrivals, seconds of the
-    trace, ending in a device sync)."""
+    returning; under a mesh rank 0 writes it). With ``mesh`` the
+    scheduler serves sharded (``params``, when given, already placed on
+    it). Returns (scheduler, stats, arrivals, seconds of the trace,
+    ending in a device sync)."""
     import torch
     from repro_torch.obs.sink import make_obs
     from repro_torch.serving import make_scheduler, run_trace
@@ -124,11 +213,14 @@ def run_scheduler_trace(args, cfg, model, device, params=None, **over):
               temperature=args.temperature, seed=args.seed,
               cache_dtype={"f32": torch.float32,
                            "bf16": torch.bfloat16}[args.cache_dtype],
-              device=device)
-    obs = make_obs(args.trace_dir, profile=args.profile, run_name="serve",
+              device=device, mesh=mesh)
+    rank0 = _rank() == 0
+    obs = make_obs(args.trace_dir if rank0 else None,
+                   profile=args.profile and rank0, run_name="serve",
                    config={"args": vars(args)},
                    extra={"arch": cfg.name, "scheduler": args.scheduler,
-                          "mesh": "single", "devices": 1})
+                          "mesh": args.mesh or "single",
+                          "devices": mesh_devices(mesh)})
     kw["obs"] = obs
     if args.scheduler == "paged":
         kw["page_size"] = args.page_size
@@ -138,7 +230,7 @@ def run_scheduler_trace(args, cfg, model, device, params=None, **over):
             kw["prefill_chunk"] = args.prefill_chunk
     sched = make_scheduler(args.scheduler, model, **{**kw, **over})
     if params is None:
-        params = init_params(model, args, device)
+        params = init_params(model, args, device, mesh)
     arrivals = make_arrivals(cfg, requests=args.requests,
                              prompt_len=args.prompt_len, gen=args.gen,
                              seed=args.seed,
@@ -166,11 +258,12 @@ def run_scheduler_trace(args, cfg, model, device, params=None, **over):
     return sched, stats, arrivals, wall
 
 
-def _run_scheduler(args, cfg, model, device):
-    sched, stats, _, dt = run_scheduler_trace(args, cfg, model, device)
-    print(f"arch={cfg.name} scheduler={args.scheduler} slots={args.batch} "
-          f"requests={args.requests} devices=1")
-    print(f"done={stats.requests_done} prefills={stats.prefills} "
+def _run_scheduler(args, cfg, model, device, mesh):
+    sched, stats, _, dt = run_scheduler_trace(args, cfg, model, device,
+                                              mesh=mesh)
+    _say(f"arch={cfg.name} scheduler={args.scheduler} slots={args.batch} "
+          f"requests={args.requests} devices={mesh_devices(mesh)}")
+    _say(f"done={stats.requests_done} prefills={stats.prefills} "
           f"decode_steps={stats.decode_steps} "
           f"tokens={stats.tokens_generated} "
           f"util={stats.utilization:.2f} "
@@ -179,13 +272,13 @@ def _run_scheduler(args, cfg, model, device):
         ql = np.array([r.queue_latency for r in stats.records])
         tt = np.array([r.ttft for r in stats.records if r.ttft >= 0])
         if len(tt):
-            print(f"queue latency (steps): p50={np.percentile(ql, 50):.0f} "
+            _say(f"queue latency (steps): p50={np.percentile(ql, 50):.0f} "
                   f"p95={np.percentile(ql, 95):.0f}  "
                   f"ttft: p50={np.percentile(tt, 50):.0f} "
                   f"p95={np.percentile(tt, 95):.0f}")
     if args.scheduler == "paged":
         reused = sum(r.prefix_pages_reused for r in stats.records)
-        print(f"pages: size={sched.page_size} pool={sched.cache_pages} "
+        _say(f"pages: size={sched.page_size} pool={sched.cache_pages} "
               f"free={sched.table.num_free} "
               f"prefix_hit_rate={sched.prefix_hit_rate:.2f} "
               f"pages_reused={reused} "
@@ -213,8 +306,8 @@ def direct_batch(cfg, batch: int, prompt_len: int, seed: int) -> dict:
     return out
 
 
-def run_direct(args, cfg, model, device, params=None, *,
-               keep_logits: bool = False) -> dict:
+def run_direct(args, cfg, model, device, params=None, *, mesh=None,
+               keep_logits: bool = False, forced=None) -> dict:
     """Direct mode: one fixed batch (:func:`direct_batch`), a joint
     prefill (the cache sized for the prompt, the new tokens and the vlm
     kind's patches) and ``--gen`` lockstep decode steps, in float32.
@@ -222,12 +315,16 @@ def run_direct(args, cfg, model, device, params=None, *,
     prefill and of the decode (each ending in a device sync) and, with
     ``keep_logits``, the prefill's last-token logits and each decode
     step's, (B, gen + 1, V) on the device (the last row follows the
-    last sampled token)."""
+    last sampled token). ``forced`` (B, gen): the decode steps take
+    these tokens in place of the sampled ones (teacher forcing). With
+    ``mesh`` the run is sharded (``params``, when given, already placed
+    on it) and the kept logits are gathered whole."""
     import torch
+    from repro_torch.dist.sharding import is_dtensor, use_mesh
     from repro_torch.serving import sample_tokens
 
     if params is None:
-        params = init_params(model, args, device)
+        params = init_params(model, args, device, mesh)
     B, T = args.batch, args.prompt_len
     batch = direct_batch(cfg, B, T, args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -237,23 +334,33 @@ def run_direct(args, cfg, model, device, params=None, *,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def whole(x):
+        return x.full_tensor() if is_dtensor(x) else x
+
     sync()
     t0 = time.time()
-    logits, cache, pos = model.prefill(
-        params, {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()},
-        dtype=torch.float32, cache_dtype=torch.float32, cache_len=total,
-        use_kernel=device.type == "cuda")
+    with use_mesh(mesh):
+        logits, cache, pos = model.prefill(
+            params, {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items()},
+            dtype=torch.float32, cache_dtype=torch.float32, cache_len=total,
+            use_kernel=device.type == "cuda")
+    logits = whole(logits)
     sync()
     t_prefill = time.time() - t0
     out_tokens, kept = [], [logits]
     t0 = time.time()
-    for _ in range(args.gen):
+    for i in range(args.gen):
         tok = sample_tokens(logits, temperature=args.temperature,
                             generator=gen)
         out_tokens.append(tok[:, 0].cpu().numpy())
-        logits, cache = model.decode_step(params, tok, cache, pos,
-                                          dtype=torch.float32)
+        if forced is not None:
+            tok = torch.as_tensor(forced[:, i:i + 1], dtype=torch.int32,
+                                  device=device)
+        with use_mesh(mesh):
+            logits, cache = model.decode_step(params, tok, cache, pos,
+                                              dtype=torch.float32)
+        logits = whole(logits)
         if keep_logits:
             kept.append(logits)
         pos = pos + 1
@@ -266,14 +373,14 @@ def run_direct(args, cfg, model, device, params=None, *,
     return out
 
 
-def _run_direct(args, cfg, model, device):
-    run = run_direct(args, cfg, model, device)
+def _run_direct(args, cfg, model, device, mesh):
+    run = run_direct(args, cfg, model, device, mesh=mesh)
     B, t_decode = args.batch, run["decode_s"]
-    print(f"arch={cfg.name} B={B} prompt={args.prompt_len} gen={args.gen} "
-          f"devices=1")
-    print(f"prefill: {run['prefill_s']:.2f}s  decode: {t_decode:.2f}s "
+    _say(f"arch={cfg.name} B={B} prompt={args.prompt_len} gen={args.gen} "
+          f"devices={mesh_devices(mesh)}")
+    _say(f"prefill: {run['prefill_s']:.2f}s  decode: {t_decode:.2f}s "
           f"({args.gen * B / max(t_decode, 1e-9):.1f} tok/s)")
-    print("sampled token ids (first row):", run["sampled"][0].tolist())
+    _say("sampled token ids (first row):", run["sampled"][0].tolist())
     return 0
 
 
@@ -311,9 +418,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arrival-gap", type=float, default=2.0,
                     help="mean Poisson inter-arrival gap (decode steps)")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 8)")
+                    help="serve sharded over the torch.distributed world: "
+                         "'host' (all tensor-parallel), 'data' (all "
+                         "data-parallel), or 'AxB' (data x model)")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="not ported yet (ROADMAP.md Queue 1 item 8)")
+                    help="run N gloo ranks on the CPU (the counterpart "
+                         "of N simulated host devices; --device cpu only)")
     ap.add_argument("--trace-dir", default=None,
                     help="observability dir: Chrome trace, metrics.jsonl "
                          "telemetry, run manifest")
@@ -326,25 +436,47 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.mesh or args.host_devices:
-        raise NotImplementedError(
-            "--mesh/--host-devices are not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-
+def serve(args) -> int:
+    """Serve as the flags say, in this process (a rank of the world when
+    ``torch.distributed`` is initialized)."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.configs import get_arch
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models import build_model
 
+    if (args.device is None and "LOCAL_RANK" in os.environ
+            and torch.cuda.is_available()):
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))   # torchrun
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    if args.scheduler != "direct":
-        return _run_scheduler(args, cfg, model, device)
-    return _run_direct(args, cfg, model, device)
+    owned = args.mesh and not dist.is_initialized()
+    mesh = setup_mesh(args, device)
+    try:
+        if args.scheduler != "direct":
+            return _run_scheduler(args, cfg, model, device, mesh)
+        return _run_direct(args, cfg, model, device, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.host_devices:
+        if args.device != "cpu":
+            raise ValueError(
+                "--host-devices N runs N gloo ranks on the CPU and needs "
+                "--device cpu; a card has no simulated devices (serve on "
+                "cards with torchrun, or --mesh host on one)")
+        one = copy.copy(args)
+        one.host_devices = 0
+        run_on_host_devices(args.host_devices, serve, one)
+        return 0
+    return serve(args)
 
 
 if __name__ == "__main__":

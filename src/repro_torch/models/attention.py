@@ -15,7 +15,11 @@ tiles, with the reference's flash-style backward (a
 ``torch.autograd.Function`` that recomputes each tile's probabilities
 from the saved log-sum-exp, so the residuals are O(T)). The reference's
 pair-scheduled variant (``flash_attention_pairs``), which only its
-dry-run switches on, is not ported (ROADMAP.md Queue 1 item 8).
+dry-run switches on, is not ported yet (ROADMAP.md Queue 1 item 8b).
+
+The reference's sharding hints sit where its hints do: under a mesh
+(:mod:`repro_torch.dist`) q, k and v go over ``model`` by KV heads and
+over ``data`` by rows; off a mesh each hint returns its input.
 
 The decode paths of serving are here too: the ring cache
 (:func:`init_cache`, :func:`decode_attention`; the cross-attention step
@@ -33,6 +37,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (
+    hint, hint_placements, is_dtensor, keep_dims, on_shards, shard_start,
+    with_dims)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.models.common import (
     apply_rope, dense_init, rope, rope_angles, zeros_init)
@@ -271,12 +278,30 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # the full attention block (projections)
 # ---------------------------------------------------------------------------
 
+def _split_heads(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A projection (B, T, K * rest) as ``shape`` (B, T, K, ...). A DTensor
+    whose last dim is sharded where the K heads cannot take the shard
+    (K not a multiple of its mesh dims' sizes) has that dim gathered
+    first: DTensor refuses such a view."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Shard
+        mesh, d = t.device_mesh, t.ndim - 1
+        n = 1
+        for md, pl in enumerate(t.placements):
+            if isinstance(pl, Shard) and pl.dim == d:
+                n *= mesh.size(md)
+        if shape[2] % n:
+            t = t.redistribute(mesh, with_dims(t.placements, {d: None}))
+    return t.reshape(shape)
+
+
 def _project_q(p, cfg, x: torch.Tensor) -> torch.Tensor:
     B, T, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    return q.reshape(B, T, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    return _split_heads(q, (B, T, cfg.num_kv_heads, cfg.q_per_kv,
+                            cfg.head_dim))
 
 
 def _project_kv(p, cfg, x: torch.Tensor):
@@ -286,9 +311,20 @@ def _project_kv(p, cfg, x: torch.Tensor):
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    k = _split_heads(k, (B, T, cfg.num_kv_heads, cfg.head_dim))
+    v = _split_heads(v, (B, T, cfg.num_kv_heads, cfg.head_dim))
     return k, v
+
+
+def heads_placements(x: torch.Tensor) -> tuple:
+    """The layout the attention regions compute q, k or v (B, T, K, ...)
+    in: what their hints resolve to — rows over ``data`` and KV heads
+    over ``model`` where those divide, else replicated — whatever layout
+    ``x`` came in (a hint that resolves to nothing leaves it as it
+    was)."""
+    rest = (None,) * (x.ndim - 3)
+    return hint_placements(x.device_mesh, x.shape, ("pod", "data"), None,
+                           "model", *rest)
 
 
 def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
@@ -304,6 +340,11 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
     B, T, _ = x.shape
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x if kv_source is None else kv_source)
+    # keep heads on the model axis when the head count divides it —
+    # otherwise the head dim splits and every score block all-reduces
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k = hint(k, ("pod", "data"), None, "model", None)
+    v = hint(v, ("pod", "data"), None, "model", None)
     if cfg.rope and kv_source is None:
         pos = positions if positions is not None \
             else torch.arange(T, device=x.device)
@@ -331,6 +372,18 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
                              device=device),
             "v": torch.zeros((batch, cache_len, K, hd), dtype=dtype,
                              device=device)}
+
+
+def cache_logical_axes() -> dict:
+    """Logical axes of :func:`init_cache`'s leaves."""
+    return {"k": ("cache_batch", "cache_seq", "cache_kv_heads", "head_dim"),
+            "v": ("cache_batch", "cache_seq", "cache_kv_heads", "head_dim")}
+
+
+def paged_cache_logical_axes() -> dict:
+    """Logical axes of :func:`init_paged_cache`'s leaves."""
+    ax = ("cache_pages", "page_off", "cache_kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
@@ -425,21 +478,49 @@ def paged_decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     the ``paged_decode`` wrapper (the CUDA kernel on a CUDA tensor, its
     plain version on a CPU tensor); without, through the plain gather
     path in the compute dtype.
+
+    Under a mesh the scatter and the attention run on each rank's
+    shard (:func:`_paged_attend`): its KV heads, and its slots where
+    they shard over ``data``; the page pools are replicated over
+    ``data``, so every rank writes every slot's new K/V row.
     """
     B = x.shape[0]
     k_new, v_new = _project_kv(p, cfg, x)
     q, k_new = _rotate_new_token(cfg, _project_q(p, cfg, x), k_new, rotary)
-    # slots mid-prefill or retired carry an all-dummy page-map row, so
-    # their write lands in the page-0 sink
-    _paged_scatter(cache, k_new[:, 0], v_new[:, 0], flat, src)
-    if use_kernel:
-        out = paged_decode(q[:, 0].float().contiguous(), cache["k"],
-                           cache["v"], page_map, pos, window=window)
-    else:
-        out = paged_decode_plain(q[:, 0], cache["k"], cache["v"], page_map,
-                                 pos, window=window)
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k_new = hint(k_new, ("pod", "data"), None, "model", None)
+    v_new = hint(v_new, ("pod", "data"), None, "model", None)
+    attend = lambda *a: _paged_attend(*a, window=window,  # noqa: E731
+                                      use_kernel=use_kernel)
+    def where(_):
+        qp = heads_placements(q)
+        rows, whole = keep_dims(qp, (0,)), keep_dims(qp, ())
+        new = with_dims(heads_placements(k_new), {0: None})
+        return (qp, new, new, cache["k"].placements, cache["v"].placements,
+                rows, rows, whole, whole), qp
+
+    out = on_shards(attend, (q, k_new, v_new, cache["k"], cache["v"],
+                             page_map, pos, flat, src), where)
     out = out.to(x.dtype).reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def _paged_attend(q, k_new, v_new, k_pages, v_pages, page_map, pos, flat,
+                  src, *, window: int, use_kernel: bool) -> torch.Tensor:
+    """The paged step on whole tensors, or on one rank's shards: every
+    row of the new K/V into the pools, then the attention of q's slots
+    (B, 1, K, G, hd) over their pages, -> (B, 1, K, G, hd)."""
+    # slots mid-prefill or retired carry an all-dummy page-map row, so
+    # their write lands in the page-0 sink
+    _paged_scatter({"k": k_pages, "v": v_pages}, k_new[:, 0], v_new[:, 0],
+                   flat, src)
+    if use_kernel:
+        out = paged_decode(q[:, 0].float().contiguous(), k_pages, v_pages,
+                           page_map, pos, window=window)
+    else:
+        out = paged_decode_plain(q[:, 0], k_pages, v_pages, page_map, pos,
+                                 window=window)
+    return out[:, None]
 
 
 def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
@@ -454,34 +535,98 @@ def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     Ring-buffer semantics when window > 0 and S == window: slot =
     pos % window and all cache entries are valid once pos >= window.
     Keys are stored post-RoPE (absolute rotation).
+
+    Under a mesh the write and the attention run on each rank's shard
+    of the cache (:func:`_ring_attend`): its slots and KV heads, or,
+    where the head count does not divide ``model`` and the sequence
+    took that axis, its span of positions, whose softmax statistics the
+    ``model`` ranks combine.
     """
     B = x.shape[0]
     k_new, v_new = _project_kv(p, cfg, x)
     q, k_new = _rotate_new_token(cfg, _project_q(p, cfg, x), k_new, rotary)
+    # tensor-parallel decode: per-token projections sharded over heads
+    # (shape-aware — a no-op off a mesh / on indivisible head counts)
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k_new = hint(k_new, ("pod", "data"), None, "model", None)
+    v_new = hint(v_new, ("pod", "data"), None, "model", None)
+    k, v = cache["k"], cache["v"]
+    S = k.shape[1]
+    kw = dict(S=S, window=window, scale=cfg.head_dim ** -0.5,
+              **_seq_split(k))
 
-    S = cache["k"].shape[1]
+    def where(_):
+        qp, kvp = heads_placements(q), heads_placements(k_new)
+        return (qp, kvp, kvp, k.placements, v.placements,
+                keep_dims(qp, (0,))), qp
+
+    out = on_shards(lambda *a: _ring_attend(*a, **kw),
+                    (q, k_new, v_new, k, v, pos), where)
+    out = out.to(x.dtype).reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+def _seq_split(k) -> dict:
+    """``_ring_attend``'s ``seq_lo``/``group`` where the ring cache ``k``
+    (B, S, K, hd) is a DTensor with its positions split over a mesh dim
+    (the heads did not divide it), else nothing."""
+    if not is_dtensor(k):
+        return {}
+    from torch.distributed.tensor import Shard
+    seq = [md for md, pl in enumerate(k.placements)
+           if isinstance(pl, Shard) and pl.dim == 1]
+    if not seq:
+        return {}
+    assert len(seq) == 1, k.placements
+    return dict(seq_lo=shard_start(k, 1),
+                group=k.device_mesh.get_group(seq[0]))
+
+
+def _ring_attend(q, k_new, v_new, k, v, pos, *, S: int, window: int,
+                 scale: float, seq_lo: int = 0, group=None
+                 ) -> torch.Tensor:
+    """The ring step on whole tensors, or on one rank's shards: each
+    slot's new K/V row into its ring position, then its attention over
+    the valid positions, -> (B, 1, K, G, hd) float32. ``S``: the whole
+    ring's length; with ``group``, k and v hold positions ``seq_lo`` ..
+    ``seq_lo + k.shape[1] - 1``, the row is written by the rank that
+    holds its position, and the softmax's max, sum and weighted values
+    are combined over ``group``."""
+    B, S_l = q.shape[0], k.shape[1]
     slot = pos % max(S, 1) if window > 0 else pos
     slot = torch.clamp(slot, max=S - 1).long()       # (B,)
-    rows = torch.arange(B, device=x.device)
-    k, v = cache["k"], cache["v"]
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
-
-    scale = cfg.head_dim ** -0.5
+    rows = torch.arange(B, device=q.device)
+    if group is None:
+        k[rows, slot] = k_new[:, 0].to(k.dtype)
+        v[rows, slot] = v_new[:, 0].to(v.dtype)
+    else:
+        here = (slot >= seq_lo) & (slot < seq_lo + S_l)
+        at = torch.clamp(slot - seq_lo, 0, S_l - 1)
+        k[rows, at] = torch.where(here[:, None, None],
+                                  k_new[:, 0].to(k.dtype), k[rows, at])
+        v[rows, at] = torch.where(here[:, None, None],
+                                  v_new[:, 0].to(v.dtype), v[rows, at])
     s = torch.einsum("btkgh,bskh->bkgts", (q * scale).float(),
-                     k.to(q.dtype).float())         # (B,K,G,1,S)
-    k_pos = torch.arange(S, device=x.device)
+                     k.to(q.dtype).float())         # (B,K,G,1,S_l)
+    k_pos = seq_lo + torch.arange(S_l, device=q.device)
     if window > 0:
         # ring: all valid once a slot's position wraps past the window
         valid = (k_pos[None, :] <= slot[:, None]) | (pos[:, None] >= S)
     else:
-        valid = k_pos[None, :] <= pos[:, None]       # (B, S)
+        valid = k_pos[None, :] <= pos[:, None]       # (B, S_l)
     s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgts,bskh->btkgh", w,
-                       v.to(q.dtype).float()).to(x.dtype)
-    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype), cache
+    if group is None:
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgts,bskh->btkgh", w, v.to(q.dtype).float())
+    import torch.distributed as dist
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    dist.all_reduce(den, group=group)
+    out = torch.einsum("bkgts,bskh->btkgh", e / den, v.to(q.dtype).float())
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def decode_cross_attention(p, cfg, x: torch.Tensor, cross_k: torch.Tensor,
@@ -501,9 +646,9 @@ def decode_cross_attention(p, cfg, x: torch.Tensor, cross_k: torch.Tensor,
     return out @ p["wo"].to(x.dtype)
 
 
-__all__ = ["NEG_INF", "attention_block", "decode_attention",
-           "decode_cross_attention",
+__all__ = ["NEG_INF", "attention_block", "cache_logical_axes",
+           "decode_attention", "decode_cross_attention",
            "flash_attention", "init_attention", "init_cache",
            "init_paged_cache", "last_writers", "page_flat_index",
-           "paged_decode_attention",
+           "paged_cache_logical_axes", "paged_decode_attention",
            "rotary_angles", "sequence_attention", "simple_attention"]

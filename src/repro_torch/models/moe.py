@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import hint, on_shards, with_dims
 from repro_torch.models.common import dense_init
 
 
@@ -57,6 +58,42 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
+def _route_local(logits: torch.Tensor, token_mask, c: int, dt):
+    """Top-1 routing of float32 router logits (n, s, E): -> (probs,
+    gate (n, s), the expert one-hot (n, s, E), keep (n, s), the dispatch
+    one-hots (n, s, E, c) in ``dt``)."""
+    n, s, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    eid = torch.argmax(logits, dim=-1)                        # first max
+    gate = torch.amax(probs, dim=-1)                          # (n, s)
+    onehot_e = _one_hot(eid, E)                               # (n, s, E)
+    if token_mask is not None:
+        onehot_e = onehot_e * token_mask.reshape(n, s).float()[..., None]
+    pos_in_e = torch.cumsum(onehot_e, dim=1) - onehot_e
+    pos = torch.sum(pos_in_e * onehot_e, dim=-1)              # (n, s) f32
+    keep = pos < c
+    onehot_c = _one_hot(pos.long(), c)                        # (n, s, c)
+    disp = (onehot_e[..., None] * onehot_c[:, :, None, :]
+            * keep[..., None, None]).to(dt)                   # (n, s, E, c)
+    return probs, gate, onehot_e, keep, disp
+
+
+def _route(logits: torch.Tensor, token_mask, c: int, dt):
+    """:func:`_route_local`; on a DTensor, on each rank's groups with
+    every group whole: the routing of a group (its argmax, its
+    capacity count down the tokens) needs all of its tokens, so a group
+    split over ``data`` is gathered first, and every rank routes it the
+    same way."""
+    def where(_):
+        groups = with_dims(logits.placements, {1: None, 2: None})
+        # with a token mask a group is a row: the mask's rows go as groups
+        return ((groups, None if token_mask is None else groups),
+                (groups,) * 5)
+
+    return on_shards(lambda lg, m: _route_local(lg, m, c, dt),
+                     (logits, token_mask), where)
+
+
 def apply_moe(p, cfg, x: torch.Tensor, capacity_factor: float | None = None,
               token_mask: torch.Tensor | None = None):
     """x: (B, T, D) -> (y (B, T, D), aux).
@@ -77,36 +114,31 @@ def apply_moe(p, cfg, x: torch.Tensor, capacity_factor: float | None = None,
         s = _group_size(B * T)
         n = B * T // s
     c = int(max(1, round(s * capacity_factor / E)))
-    xg = x.reshape(n, s, D)
+    xg = hint(x.reshape(n, s, D), ("pod", "data"), None, None)
 
     logits = (xg @ p["router"].to(dt)).float()                # (n, s, E)
-    probs = torch.softmax(logits, dim=-1)
-    eid = torch.argmax(logits, dim=-1)                        # first max
-    gate = torch.amax(probs, dim=-1)                          # (n, s)
-
-    onehot_e = _one_hot(eid, E)                               # (n, s, E)
-    if token_mask is not None:
-        keep_tok = token_mask.reshape(n, s).float()
-        onehot_e = onehot_e * keep_tok[..., None]
-    pos_in_e = torch.cumsum(onehot_e, dim=1) - onehot_e
-    pos = torch.sum(pos_in_e * onehot_e, dim=-1)              # (n, s) f32
-    keep = pos < c
-    onehot_c = _one_hot(pos.long(), c)                        # (n, s, c)
-    disp = (onehot_e[..., None] * onehot_c[:, :, None, :]
-            * keep[..., None, None]).to(dt)                   # (n, s, E, c)
+    probs, gate, onehot_e, keep, disp = _route(logits, token_mask, c, dt)
+    disp = hint(disp, ("pod", "data"), None, "model", None)
 
     buf = torch.einsum("nsec,nsd->necd", disp, xg)            # (n, E, c, D)
+    buf = hint(buf, ("pod", "data"), "model", None, None)
     up = torch.einsum("necd,edf->necf", buf, p["w_up"].to(dt))
+    up = hint(up, ("pod", "data"), "model", None, None)
     if "w_gate" in p:
         g = torch.einsum("necd,edf->necf", buf, p["w_gate"].to(dt))
+        g = hint(g, ("pod", "data"), "model", None, None)
         act = F.silu(g) if cfg.mlp_variant == "swiglu" \
             else F.gelu(g, approximate="tanh")
         h = act * up
     else:
         h = F.gelu(up, approximate="tanh")
     out = torch.einsum("necf,efd->necd", h, p["w_down"].to(dt))
+    out = hint(out, ("pod", "data"), "model", None, None)
     y = torch.einsum("nsec,necd->nsd", disp, out)             # (n, s, D)
+    y = hint(y, ("pod", "data"), None, None)
     y = y * gate[..., None].to(dt)
+    if token_mask is not None:
+        keep_tok = token_mask.reshape(n, s).float()
 
     # aux: over the real tokens only when a token_mask is given
     lse2 = torch.logsumexp(logits, dim=-1) ** 2

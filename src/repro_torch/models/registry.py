@@ -1,5 +1,5 @@
-"""Model registry — the port of ``repro/models/registry.py``, training
-part.
+"""Model registry — the port of ``repro/models/registry.py`` (its
+``input_specs``, which only the dry run reads, is item 8b).
 
 ``build_model(cfg)`` returns a :class:`ModelApi`. Parameters are nested
 dicts of tensors; ``abstract_params`` gives their shapes (on the
@@ -10,9 +10,14 @@ chunked prefill are token-only: the vlm, encdec and audio kinds raise);
 they update the caches they are given in place. ``batch`` passes
 through as given, so the vlm kind's ``patches`` and the encdec and
 audio kinds' ``frames`` reach the forward, the loss and the prefill.
-The moe kind's ``loss`` adds the routers' aux losses. ``use_kernel`` on ``forward``,
-``loss``, ``prefill`` and ``prefill_chunk`` sends the ssm kind's scans
-from a zero state through the ``ssd_scan`` kernel (forward only).
+The moe kind's ``loss`` adds the routers' aux losses. ``use_kernel``
+on ``forward``, ``loss``, ``prefill`` and ``prefill_chunk`` sends the
+ssm kind's scans from a zero state through the ``ssd_scan`` kernel
+(forward only). Under a mesh the caches are DTensors placed by the
+serve cache rules (``init_cache(mesh=)``, ``init_paged_cache(mesh=)``);
+``cache_axes``, ``paged_cache_axes``, ``abstract_cache`` and
+``abstract_paged_cache`` give their logical axes and ``meta`` shapes,
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -77,9 +82,21 @@ class ModelApi:
                                  dtype=dtype, serve_window=serve_window)
 
     def init_cache(self, batch, seq_len, dtype=torch.bfloat16,
-                   serve_window=0, *, device=None):
+                   serve_window=0, *, device=None, mesh=None,
+                   cache_rules=None):
         return serve.init_cache_tree(self.cfg, batch, seq_len, dtype,
-                                     serve_window=serve_window, device=device)
+                                     serve_window=serve_window, device=device,
+                                     mesh=mesh, cache_rules=cache_rules)
+
+    def abstract_cache(self, batch, seq_len, dtype=torch.bfloat16,
+                       serve_window=0):
+        """The ring-cache tree as ``meta`` tensors — no allocation."""
+        return serve.init_cache_tree(self.cfg, batch, seq_len, dtype,
+                                     serve_window=serve_window,
+                                     device="meta")
+
+    def cache_axes(self):
+        return serve.cache_logical_axes_tree(self.cfg)
 
     # -- paged serving --------------------------------------------------
     def prefill_chunk(self, params, cache, tokens, start, valid, page_row,
@@ -99,9 +116,21 @@ class ModelApi:
                                        use_kernel=use_kernel)
 
     def init_paged_cache(self, slots, num_pages, page_size,
-                         dtype=torch.bfloat16, *, device=None):
+                         dtype=torch.bfloat16, *, device=None, mesh=None,
+                         cache_rules=None):
         return serve.init_paged_cache_tree(self.cfg, slots, num_pages,
-                                           page_size, dtype, device=device)
+                                           page_size, dtype, device=device,
+                                           mesh=mesh,
+                                           cache_rules=cache_rules)
+
+    def abstract_paged_cache(self, slots, num_pages, page_size,
+                             dtype=torch.bfloat16):
+        """The paged-cache tree as ``meta`` tensors — no allocation."""
+        return serve.init_paged_cache_tree(self.cfg, slots, num_pages,
+                                           page_size, dtype, device="meta")
+
+    def paged_cache_axes(self):
+        return serve.paged_cache_logical_axes_tree(self.cfg)
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:

@@ -17,14 +17,15 @@ log-depth scan on tensors (:func:`linear_scan`): ceil(log2 T) doubling
 steps, each elementwise over ``(B, T, w)`` — the reference's
 ``jax.lax.associative_scan`` in another tree of the same combine, so the
 two sum in another order. Decode is the single-step update. The
-reference's sharding hint in ``decode_rglru`` is a no-op on one device
-and is left out.
+reference's sharding hint in ``decode_rglru`` puts the recurrence
+width over ``model`` under a mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import hint
 from repro_torch.models.common import Px, _normal, dense_init, zeros_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -122,12 +123,21 @@ def init_rglru_cache(cfg, batch: int, dtype=torch.float32, *,
                                 device=device)}
 
 
+def rglru_cache_logical_axes(cfg) -> dict:
+    """Logical axes of :func:`init_rglru_cache`'s leaves."""
+    return {"h": ("cache_batch", "rnn_width"),
+            "conv": ("cache_batch", None, "rnn_width")}
+
+
 def decode_rglru(p, cfg, x: torch.Tensor, cache: dict):
     """x: (B, 1, d) -> (y, new_cache); O(1) state update; ``cache`` is
     read, not written."""
     dt = x.dtype
     ga = F.gelu(x @ p["w_gelu"].to(dt), approximate="tanh")
     xb = x @ p["w_rec"].to(dt)
+    # tensor-parallel decode: recurrence width sharded over model
+    # (shape-aware — a no-op off a mesh / on indivisible widths)
+    xb = hint(xb, ("pod", "data"), None, "model")
     xb, conv_state = _causal_conv(xb, p["conv"], cache["conv"])
     a, beta = _gates(p, xb)                          # (B, 1, w)
     h = a[:, 0] * cache["h"] + beta[:, 0] * xb[:, 0].float()
@@ -137,4 +147,5 @@ def decode_rglru(p, cfg, x: torch.Tensor, cache: dict):
 
 
 __all__ = ["RG_C", "apply_rglru", "decode_rglru", "init_rglru",
-           "init_rglru_cache", "linear_scan", "rglru_sequence"]
+           "init_rglru_cache", "linear_scan", "rglru_cache_logical_axes",
+           "rglru_sequence"]

@@ -16,15 +16,18 @@ Two SSD execution paths, as in the reference:
   shared by the heads (the reference repeats B and C for every head and
   transposes x, dt and loga into rows, as its TPU kernel needs).
 
-Decode: the O(1) single-step state update (:func:`decode_ssm`). The
-reference's sharding hints in ``decode_ssm`` are no-ops on one device
-and are left out.
+Decode: the O(1) single-step state update (:func:`decode_ssm`), with
+the reference's sharding hints: under a mesh the state goes over
+``model`` by SSM heads. The scan of :func:`ssm_sequence`, kernel or
+plain, runs on each rank's heads (and slots) under a mesh: the heads
+scan independently.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import hint, hint_placements, on_shards
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_heads
 from repro_torch.models.common import Px, dense_init, ones_init, _normal
 
@@ -115,14 +118,36 @@ def ssm_sequence(p, cfg, x: torch.Tensor, *, conv0=None, keep=None,
     loga = dt * A
 
     xh = xs.reshape(b, T, H, P)
-    if use_kernel:
-        y, h_fin = ssd_scan_heads(xh, dt, loga, Bm, Cm, chunk=cfg.ssm_chunk)
-    else:
-        y, h_fin = ssd_chunked(xh, dt, loga, Bm, Cm, h0=h0,
-                               chunk=cfg.ssm_chunk)
+    y, h_fin = _scan(xh, dt, loga, Bm, Cm, h0, chunk=cfg.ssm_chunk,
+                     use_kernel=use_kernel)
     y = y + xh * p["D"].to(dt_model)[None, None, :, None]
     y = y.reshape(b, T, d_in) * F.silu(z)
     return y @ p["w_out"].to(dt_model), h_fin, pre
+
+
+def _scan(xh, dt, loga, Bm, Cm, h0, *, chunk: int, use_kernel: bool):
+    """The SSD scan, the ``ssd_scan`` kernel or the plain chunked one,
+    -> (y (b, T, H, P), h_final (b, H, S, P)). On DTensors it runs on
+    each rank's shard — its heads over ``model`` where H divides it, its
+    rows over ``data`` where b does — so every rank launches the kernel
+    on its own heads."""
+    def scan(xh, dt, loga, Bm, Cm, h0):
+        if use_kernel:
+            return ssd_scan_heads(xh, dt, loga, Bm, Cm, chunk=chunk)
+        return ssd_chunked(xh, dt, loga, Bm, Cm, h0=h0, chunk=chunk)
+
+    def where(mesh):
+        rows = ("pod", "data")
+        heads = hint_placements(mesh, xh.shape, rows, None, "model", None)
+        per_head = hint_placements(mesh, dt.shape, rows, None, "model")
+        shared = hint_placements(mesh, Bm.shape, rows, None, None)
+        state = hint_placements(mesh, (xh.shape[0], xh.shape[2],
+                                       Bm.shape[2], xh.shape[3]),
+                                rows, "model", None, None)
+        return ((heads, per_head, per_head, shared, shared,
+                 None if h0 is None else state), (heads, state))
+
+    return on_shards(scan, (xh, dt, loga, Bm, Cm, h0), where)
 
 
 def apply_ssm(p, cfg, x: torch.Tensor, *,
@@ -150,6 +175,16 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, *,
     }
 
 
+def ssm_cache_logical_axes(cfg) -> dict:
+    """Logical axes of :func:`init_ssm_cache`'s leaves."""
+    return {
+        "h": ("cache_batch", "ssm_heads", "ssm_state", None),
+        "conv_x": ("cache_batch", None, "ssm_in"),
+        "conv_B": ("cache_batch", None, None),
+        "conv_C": ("cache_batch", None, None),
+    }
+
+
 def decode_ssm(p, cfg, x: torch.Tensor, cache: dict):
     """x: (B, 1, d) -> (y, new_cache); ``cache`` is read, not written."""
     b = x.shape[0]
@@ -170,8 +205,12 @@ def decode_ssm(p, cfg, x: torch.Tensor, cache: dict):
     a = torch.exp(dt * A)                                          # (b, H)
 
     xh = xs.reshape(b, H, P).float()
+    # tensor-parallel decode: recurrent state sharded over SSM heads
+    # (shape-aware — a no-op off a mesh / on indivisible head counts)
+    xh = hint(xh, ("pod", "data"), "model", None)
     h = a[..., None, None] * cache["h"] + \
         dt[..., None, None] * Bm[:, None, :, None] * xh[:, :, None, :]
+    h = hint(h, ("pod", "data"), "model", None, None)
     y = torch.einsum("bs,bhsp->bhp", Cm.float(), h)                # (b, H, P)
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(b, 1, d_in).to(dt_model)
@@ -183,4 +222,5 @@ def decode_ssm(p, cfg, x: torch.Tensor, cache: dict):
 
 
 __all__ = ["apply_ssm", "decode_ssm", "init_ssm", "init_ssm_cache",
-           "ssd_chunked", "ssd_scan_heads", "ssm_sequence"]
+           "ssd_chunked", "ssd_scan_heads", "ssm_cache_logical_axes",
+           "ssm_sequence"]

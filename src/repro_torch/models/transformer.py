@@ -37,6 +37,7 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import hint, is_dtensor, with_dims
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
@@ -97,6 +98,7 @@ def apply_dense_layer(p, cfg, x: torch.Tensor, *, mode: str = "causal",
     """-> (x, the MoE FFN's aux, or None for an MLP layer). A layer with
     ``cross`` attends to ``enc_out`` between its self-attention and its
     FFN."""
+    x = hint(x, ("pod", "data"), None, None)   # batch stays data-sharded
     h = apply_norm(cfg, p["ln_attn"], x)
     h = attn.attention_block(p["attn"], cfg, h, mode=mode, window=window,
                              prefix_len=prefix_len, positions=positions)
@@ -112,6 +114,7 @@ def init_ssm_layer(gen, cfg, *, device) -> dict:
 
 def apply_ssm_layer(p, cfg, x: torch.Tensor, *,
                     use_kernel: bool = False) -> torch.Tensor:
+    x = hint(x, ("pod", "data"), None, None)
     return x + ssmm.apply_ssm(p["ssm"], cfg, apply_norm(cfg, p["ln"], x),
                               use_kernel=use_kernel)
 
@@ -124,6 +127,7 @@ def init_rec_layer(gen, cfg, *, device) -> dict:
 
 
 def apply_rec_layer(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = hint(x, ("pod", "data"), None, None)
     x = x + rgm.apply_rglru(p["rec"], cfg, apply_norm(cfg, p["ln_rec"], x))
     return x + mlpm.apply_mlp(p["mlp"], cfg, apply_norm(cfg, p["ln_mlp"], x))
 
@@ -239,12 +243,16 @@ def init_model(gen, cfg, *, device) -> dict:
 
 def _embed_tokens(p, cfg, tokens: torch.Tensor, dtype) -> torch.Tensor:
     x = F.embedding(tokens.long(), p["embed"].to(dtype))
+    if is_dtensor(x):
+        # a vocab-sharded table leaves a pending masked sum: reduce it
+        # now, while its mask is live
+        x = x.redistribute(x.device_mesh, with_dims(x.placements, {}))
     if cfg.scale_embed:
         # the factor rounded to the compute dtype, as the reference's
         # jnp.asarray(sqrt(d), dtype); torch.full launches no host copy
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype,
                            device=x.device)
-    return x
+    return hint(x, ("pod", "data"), None, None)
 
 
 def _unembed(p, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -253,7 +261,9 @@ def _unembed(p, cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    # keep the vocab dim model-sharded through the loss — replicated
+    # (B, T, V) logits are a multi-GB temporary per rank
+    return hint(logits, ("pod", "data"), None, "model")
 
 
 def _unstack(stacked: dict, n: int) -> list[dict]:

@@ -50,19 +50,35 @@ its slot's gathered pages, materialized. ``use_kernel`` on
 :func:`prefill` and :func:`prefill_chunk` sends every SSD scan that starts from a zero state (a one-shot prefill, a prompt's
 first chunk) through the ``ssd_scan`` kernel; a later chunk carries its
 slot's state and takes the plain ``ssd_chunked``.
+
+Under a mesh (:func:`repro_torch.dist.use_mesh`, the params DTensors
+from ``serving.sharding.shard_params``) the same functions serve
+sharded: caches are made as DTensors placed by the serve cache rules,
+the reference's ``hint`` calls redistribute the activations, and what
+DTensor has no strategy for runs on each rank's shard
+(:func:`repro_torch.dist.sharding.on_shards`): the ring fill, the
+attention steps with their in-place cache writes, the paged scatter and
+``paged_decode``, the SSD scan, per-row gathers. A slot write keeps the
+live placement (only the ranks holding the slot write;
+:func:`~repro_torch.dist.sharding.write_rows`), and a chunk reads a
+data-sharded slot's state from the rank that holds it
+(:func:`~repro_torch.dist.sharding.read_rows`), never the whole leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import (
+    ambient_mesh, hint, is_dtensor, keep_dims, local, on_shards, placements,
+    read_rows, with_dims, write_rows)
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import rglru as rgm
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
-    apply_norm, apply_rope, tree_items, tree_leaves)
+    apply_norm, apply_rope, tree_from_items, tree_items, tree_leaves)
 from repro_torch.models.transformer import (
     ENCODER_KINDS, _embed_tokens, _unembed, apply_cross, apply_ffn,
     attention_mode, embed_inputs, group_layout, walk_layers)
@@ -104,6 +120,47 @@ def _cache_tree(cfg, make: dict) -> dict:
     return tree
 
 
+def _axes_tree(cfg, make: dict) -> dict:
+    """Logical axes in the layout of :func:`_cache_tree`: each leaf's
+    axes from ``make[kind]()`` behind the stack's ``layers`` axis."""
+    def stacked(d):
+        return {k: stacked(v) if isinstance(v, dict)
+                else ("layers",) + tuple(v) for k, v in d.items()}
+
+    layout = group_layout(cfg)
+    if layout is None:
+        kind = "ssm" if cfg.kind == "ssm" else "attn"
+        return {"layers": stacked(make[kind]())}
+    members, n_groups, rem = layout
+    tree = {}
+    if n_groups:
+        tree["groups"] = stacked({name: make[kind]()
+                                  for name, kind in members})
+    if rem:
+        tree["tail"] = stacked(make["rec"]())
+    return tree
+
+
+def _placed(tree: dict, axes: dict, mesh, cache_rules) -> dict:
+    """A tree of ``meta`` leaves as zero DTensors on ``mesh``, each leaf
+    placed by ``spec_for_shape`` of its logical axes under
+    ``cache_rules`` (default ``SERVE_CACHE_RULES``): every rank allocates
+    its own shard only."""
+    from torch.distributed.tensor import zeros
+
+    from repro_torch.serving.sharding import SERVE_CACHE_RULES
+    rules = cache_rules or SERVE_CACHE_RULES
+    out = []
+    for (path, leaf), (apath, ax) in zip(tree_items(tree),
+                                         tree_items(axes)):
+        assert path == apath, (path, apath)
+        pl = placements(rules.spec_for_shape(tuple(ax), tuple(leaf.shape),
+                                             mesh), mesh)
+        out.append((path, zeros(tuple(leaf.shape), dtype=leaf.dtype,
+                                device_mesh=mesh, placements=pl)))
+    return tree_from_items(out)
+
+
 def _kv_pool(cfg, cache: dict):
     """The first attention stack's K leaf (its page size or ring length
     is every attention layer's), or None when the model has no
@@ -137,8 +194,8 @@ def cache_len_for(cfg, seq_len: int, serve_window: int = 0) -> int:
 
 
 def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-                    serve_window: int = 0, *, device: DeviceLike = None
-                    ) -> dict:
+                    serve_window: int = 0, *, device: DeviceLike = None,
+                    mesh=None, cache_rules=None) -> dict:
     """Ring-cache tree for the whole model, every layer stacked:
     ``{"layers": {"k", "v"}}`` of ``(layers, batch, S, K, hd)`` (ssm:
     ``{"layers": {"h", "conv_x", "conv_B", "conv_C"}}``, the state;
@@ -147,7 +204,17 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     ``{"groups": {"dense_0", ..., "moe": {"k", "v"}}}``; encdec and
     audio: ``{"layers": {"k", "v", "cross_k", "cross_v"}}``, the cross
     leaves ``(layers, batch, enc_seq_len, K, hd)``), on ``device``
-    (default: the CUDA device)."""
+    (default: the CUDA device).
+
+    With ``mesh``, every leaf is a DTensor placed by its
+    :func:`cache_logical_axes_tree` axes under ``cache_rules`` (default
+    ``SERVE_CACHE_RULES`` — heads over ``model``, the sequence as the
+    fallback, slots over the replica axes), so the live batch starts
+    sharded and every later write keeps that placement."""
+    if mesh is not None:
+        return _placed(init_cache_tree(cfg, batch, seq_len, dtype,
+                                       serve_window, device="meta"),
+                       cache_logical_axes_tree(cfg), mesh, cache_rules)
     device = resolve_device(device)
     S = cache_len_for(cfg, seq_len, serve_window)
 
@@ -164,6 +231,23 @@ def init_cache_tree(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
         "ssm": lambda: ssmm.init_ssm_cache(cfg, batch, dtype, device=device),
         "rec": lambda: rgm.init_rglru_cache(cfg, batch, dtype,
                                             device=device)})
+
+
+def cache_logical_axes_tree(cfg) -> dict:
+    """Logical axes matching :func:`init_cache_tree`'s structure."""
+    def attn_axes():
+        d = attn.cache_logical_axes()
+        if cfg.kind in ENCODER_KINDS:
+            d["cross_k"] = ("cache_batch", None, "cache_kv_heads",
+                            "head_dim")
+            d["cross_v"] = ("cache_batch", None, "cache_kv_heads",
+                            "head_dim")
+        return d
+
+    return _axes_tree(cfg, {
+        "attn": attn_axes,
+        "ssm": lambda: ssmm.ssm_cache_logical_axes(cfg),
+        "rec": lambda: rgm.rglru_cache_logical_axes(cfg)})
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +289,30 @@ def _ring_fill(k_all: torch.Tensor, v_all: torch.Tensor, S: int, dtype,
     return k.to(dtype), v.to(dtype)
 
 
+def _ring_fill_sharded(k_all, v_all, S: int, dtype, lengths=None):
+    """:func:`_ring_fill` on each rank's slots and heads (T unsharded)."""
+    def where(_):
+        pl = with_dims(k_all.placements, {1: None})
+        return (pl, pl, None if lengths is None
+                else keep_dims(pl, (0,))), (pl, pl)
+
+    return on_shards(lambda k, v, n: _ring_fill(k, v, S, dtype, n),
+                     (k_all, v_all, lengths), where)
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]`` for every row b: (B, T, ...) -> (B, ...)."""
+    def take(x, idx):
+        return x[torch.arange(x.shape[0], device=x.device), idx.long()]
+
+    def where(_):
+        pl = with_dims(x.placements, {1: None})
+        return ((pl, keep_dims(pl, (0,))),
+                with_dims(pl, {d: d - 1 for d in range(2, x.ndim)}))
+
+    return on_shards(take, (x, idx), where)
+
+
 def _rotate(q: torch.Tensor, k: torch.Tensor, rotary):
     """RoPE on a sequence's queries (B, T, K, G, hd) and keys (B, T, K,
     hd) with precomputed angles."""
@@ -226,7 +334,16 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
     B, T, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
-    q, k = _rotate(attn._project_q(lp["attn"], cfg, h), k, rotary)
+    q = attn._project_q(lp["attn"], cfg, h)
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k = hint(k, ("pod", "data"), None, "model", None)
+    v = hint(v, ("pod", "data"), None, "model", None)
+    q, k = _rotate(q, k, rotary)
+    # pin the attention inputs AFTER rope: otherwise the cache output's
+    # placement propagates backwards into the attention
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k = hint(k, ("pod", "data"), None, "model", None)
+    v = hint(v, ("pod", "data"), None, "model", None)
     out = attn.sequence_attention(q, k, v, mode=mode, window=window,
                                   prefix_len=prefix_len)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
@@ -240,7 +357,8 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
         torch.arange(T, device=x.device)[None, :] < lengths[:, None])
     y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x), tmask)
     x = x + y
-    ck, cv = _ring_fill(k, v, c["k"].shape[1], c["k"].dtype, lengths)
+    ck, cv = _ring_fill_sharded(k, v, c["k"].shape[1], c["k"].dtype,
+                                lengths)
     c["k"].copy_(ck)
     c["v"].copy_(cv)
     return x
@@ -252,6 +370,12 @@ def _conv_context(pre: torch.Tensor, n, K: int, state0=None
     ``[state0 | pre]`` (zeros for ``state0`` if None): the trailing
     context a causal conv continues from after ``n`` of ``pre``'s tokens.
     ``n``: a Python int, or a (B,) tensor of per-row lengths."""
+    if is_dtensor(pre) and not isinstance(n, int):
+        pl = with_dims(pre.placements, {1: None})
+        return on_shards(lambda x, n, s0: _conv_context(x, n, K, s0),
+                         (pre, n, state0),
+                         lambda _: ((pl, keep_dims(pl, (0,)),
+                                     None if state0 is None else pl), pl))
     B, _, D = pre.shape
     head = (torch.zeros((B, K - 1, D), dtype=pre.dtype, device=pre.device)
             if state0 is None else state0.to(pre.dtype))
@@ -296,8 +420,7 @@ def _prefill_rec_layer(lp, cfg, x: torch.Tensor, c: dict, *,
         c["h"].copy_(hs[:, -1])
         n = T
     else:
-        last = torch.clamp(lengths.long() - 1, min=0)
-        c["h"].copy_(hs[torch.arange(B, device=x.device), last])
+        c["h"].copy_(_take_rows(hs, torch.clamp(lengths.long() - 1, min=0)))
         n = lengths
     c["conv"].copy_(_conv_context(pre, n, cfg.rglru_conv_width))
     return x
@@ -348,7 +471,7 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=device).reshape(B) + (L - T)
     cache = init_cache_tree(cfg, B, max(cache_len or 0, L), cache_dtype,
-                            serve_window, device=device)
+                            serve_window, device=device, mesh=ambient_mesh())
     rotary = (None if cfg.kind == "ssm" else
               attn.rotary_angles(cfg, torch.arange(L, device=device)))
     for kind, lp, c in walk_layers(cfg, p, cache):
@@ -367,8 +490,7 @@ def prefill(p, cfg, batch, *, dtype=torch.bfloat16,
         return logits, cache, torch.full((), L, dtype=torch.int32,
                                           device=device)
     # per-slot: logits at each row's last valid token, (B,) positions
-    last = torch.clamp(lengths.long() - 1, min=0)
-    x_last = x[torch.arange(B, device=device), last][:, None]
+    x_last = _take_rows(x, torch.clamp(lengths.long() - 1, min=0))[:, None]
     return _unembed(p, cfg, x_last), cache, lengths
 
 
@@ -475,20 +597,25 @@ def write_cache_slot(cfg, cache: dict, one_cache: dict, slot: int, *,
 
     ``one_cache`` comes from a batch-1 :func:`prefill` with the same
     ``cache_len``/``serve_window`` as the live ``cache``; every leaf
-    (K/V, or the recurrent state and conv contexts) is copied along its
-    batch axis (axis 1, after the stack's), cast to the live leaf's
-    dtype. Optionally also writes ``one_pos`` (0-d or (1,)) into the
-    per-slot ``pos`` vector, in place. Returns ``cache`` (and ``pos``
-    when given). The cross leaves of the encdec and audio kinds are
-    copied like the others.
+    (K/V, the recurrent state and conv contexts, the cross leaves of
+    the encdec and audio kinds) is copied along its ``cache_batch``
+    axis, found through :func:`cache_logical_axes_tree` as the reference
+    does, cast to the live leaf's dtype. Optionally also writes
+    ``one_pos`` (0-d or (1,)) into the per-slot ``pos`` vector, in place.
+    Returns ``cache`` (and ``pos`` when given).
+
+    On a DTensor cache the write keeps the live placement: only the
+    rank(s) holding ``slot`` write it, and the batch-1 source is taken
+    into the live heads layout first (the live cache never moves).
     """
-    for (path, dst), (src_path, src) in zip(tree_items(cache),
-                                            tree_items(one_cache)):
-        assert path == src_path, (path, src_path)
-        dst[:, slot:slot + 1].copy_(src)
+    axes = tree_items(cache_logical_axes_tree(cfg))
+    for (path, dst), (src_path, src), (ax_path, ax) in zip(
+            tree_items(cache), tree_items(one_cache), axes):
+        assert path == src_path == ax_path, (path, src_path, ax_path)
+        write_rows(dst, src.to(dst.dtype), slot, ax.index("cache_batch"))
     if pos is None:
         return cache
-    pos[slot] = torch.as_tensor(one_pos).reshape(())
+    pos[slot] = torch.as_tensor(local(one_pos)).reshape(())
     return cache, pos
 
 
@@ -499,15 +626,24 @@ def write_cache_slot(cfg, cache: dict, one_cache: dict, slot: int, *,
 
 def init_paged_cache_tree(cfg, slots: int, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, *,
-                          device: DeviceLike = None) -> dict:
+                          device: DeviceLike = None, mesh=None,
+                          cache_rules=None) -> dict:
     """Paged-cache tree: attention K/V leaves become a page pool
     ``(layers, num_pages, page_size, K, hd)`` shared by all slots (page 0
     reserved as the dummy sink), on ``device`` (default: the CUDA
     device). ``slots`` sizes the per-slot recurrent state, which has no
     pages: the ssm kind's ``{"layers": {"h", "conv_x", "conv_B",
     "conv_C"}}``, an RG-LRU layer's ``{"h", "conv"}``, each with
-    ``slots`` lanes."""
+    ``slots`` lanes. With ``mesh``, every leaf is a DTensor placed as in
+    :func:`init_cache_tree` (the page and in-page offset dims stay
+    replicated)."""
     _require_paged(cfg)
+    if mesh is not None:
+        return _placed(init_paged_cache_tree(cfg, slots, num_pages,
+                                             page_size, dtype,
+                                             device="meta"),
+                       paged_cache_logical_axes_tree(cfg), mesh,
+                       cache_rules)
     device = resolve_device(device)
     return _cache_tree(cfg, {
         "attn": lambda: attn.init_paged_cache(cfg, num_pages, page_size,
@@ -515,6 +651,15 @@ def init_paged_cache_tree(cfg, slots: int, num_pages: int, page_size: int,
         "ssm": lambda: ssmm.init_ssm_cache(cfg, slots, dtype, device=device),
         "rec": lambda: rgm.init_rglru_cache(cfg, slots, dtype,
                                             device=device)})
+
+
+def paged_cache_logical_axes_tree(cfg) -> dict:
+    """Logical axes matching :func:`init_paged_cache_tree`'s structure."""
+    _require_paged(cfg)
+    return _axes_tree(cfg, {
+        "attn": attn.paged_cache_logical_axes,
+        "ssm": lambda: ssmm.ssm_cache_logical_axes(cfg),
+        "rec": lambda: rgm.rglru_cache_logical_axes(cfg)})
 
 
 def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
@@ -533,14 +678,35 @@ def _chunk_attn_layer(lp, cfg, x: torch.Tensor, kv: dict, *, mode: str,
     B, C, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
-    q, k = _rotate(attn._project_q(lp["attn"], cfg, h), k, rotary)
-    attn._paged_scatter(kv, k[0], v[0], flat, src)
-    ps, P = kv["k"].shape[1], row.shape[0]
-    kg = kv["k"][row].reshape(1, P * ps, *kv["k"].shape[2:])
-    vg = kv["v"][row].reshape(1, P * ps, *kv["v"].shape[2:])
-    out = attn.simple_attention(q, kg.to(q.dtype), vg.to(q.dtype),
-                                mode=mode, window=window, q_offset=start,
-                                k_len=start + valid)
+    q = attn._project_q(lp["attn"], cfg, h)
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k = hint(k, ("pod", "data"), None, "model", None)
+    v = hint(v, ("pod", "data"), None, "model", None)
+    q, k = _rotate(q, k, rotary)
+    q = hint(q, ("pod", "data"), None, "model", None, None)
+    k = hint(k, ("pod", "data"), None, "model", None)
+    v = hint(v, ("pod", "data"), None, "model", None)
+
+    def attend(q, k, v, k_pages, v_pages, flat, src, row):
+        attn._paged_scatter({"k": k_pages, "v": v_pages}, k[0], v[0], flat,
+                            src)
+        ps, P = k_pages.shape[1], row.shape[0]
+        kg = k_pages[row].reshape(1, P * ps, *k_pages.shape[2:])
+        vg = v_pages[row].reshape(1, P * ps, *v_pages.shape[2:])
+        return attn.simple_attention(q, kg.to(q.dtype), vg.to(q.dtype),
+                                     mode=mode, window=window,
+                                     q_offset=start, k_len=start + valid)
+
+    def where(_):
+        # each rank's heads; the one chunk and the pools are whole over
+        # ``data``, so every data rank writes the same rows
+        qp, kvp = attn.heads_placements(q), attn.heads_placements(k)
+        idx = keep_dims(qp, ())
+        return (qp, kvp, kvp, kv["k"].placements, kv["v"].placements,
+                idx, idx, idx), qp
+
+    out = on_shards(attend, (q, k, v, kv["k"], kv["v"], flat, src, row),
+                    where)
     out = out.reshape(B, C, cfg.num_heads * cfg.head_dim)
     x = x + out @ lp["attn"]["wo"].to(x.dtype)
     y, _ = apply_ffn(lp, cfg, apply_norm(cfg, lp["ln_mlp"], x),
@@ -556,19 +722,20 @@ def _chunk_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
     written back to) lane ``slot`` of the cache leaves; ``start == 0``
     starts fresh, and only a fresh chunk's scan can take the kernel."""
     C = x.shape[1]
-    lane = slice(slot, slot + 1)
     fresh = start == 0
-    conv0 = None if fresh else tuple(c[k][lane] for k in _CONV_LEAVES)
+    conv0 = None if fresh else tuple(read_rows(c[k], slot, 1, 0)
+                                     for k in _CONV_LEAVES)
     # dt = 0 freezes the recurrence on pad rows (the same trick as the
     # mixed-length one-shot prefill), so h_fin is the state at valid-1
     keep = (torch.arange(C, device=x.device) < valid)[None, :, None]
     out, h_fin, pre = ssmm.ssm_sequence(
         lp["ssm"], cfg, apply_norm(cfg, lp["ln"], x), conv0=conv0,
-        keep=keep, h0=None if fresh else c["h"][lane],
+        keep=keep, h0=None if fresh else read_rows(c["h"], slot, 1, 0),
         use_kernel=use_kernel and fresh)
-    c["h"][lane].copy_(h_fin)
+    write_rows(c["h"], h_fin, slot, 0)
     for name, v, v0 in zip(_CONV_LEAVES, pre, conv0 or (None,) * 3):
-        c[name][lane].copy_(_conv_context(v, valid, cfg.ssm_conv_width, v0))
+        write_rows(c[name], _conv_context(v, valid, cfg.ssm_conv_width, v0),
+                   slot, 0)
     return x + out
 
 
@@ -579,17 +746,16 @@ def _chunk_rec_layer(lp, cfg, x: torch.Tensor, c: dict, *, slot: int,
     element (h_0 = a_0 h_in + b_0), which continues the recurrence
     exactly; ``start == 0`` starts fresh. Pad rows (>= valid) run on, and
     the state written back is the one at row valid - 1."""
-    lane = slice(slot, slot + 1)
     fresh = start == 0
-    conv0 = None if fresh else c["conv"][lane]
+    conv0 = None if fresh else read_rows(c["conv"], slot, 1, 0)
     out, hs, pre = rgm.rglru_sequence(
         lp["rec"], apply_norm(cfg, lp["ln_rec"], x), conv0=conv0,
-        h0=None if fresh else c["h"][lane])
+        h0=None if fresh else read_rows(c["h"], slot, 1, 0))
     x = x + out
     x = x + mlpm.apply_mlp(lp["mlp"], cfg, apply_norm(cfg, lp["ln_mlp"], x))
     conv1 = _conv_context(pre, valid, cfg.rglru_conv_width, conv0)
-    c["h"][lane].copy_(hs[:, max(valid - 1, 0)])
-    c["conv"][lane].copy_(conv1)
+    write_rows(c["h"], hs[:, max(valid - 1, 0)], slot, 0)
+    write_rows(c["conv"], conv1, slot, 0)
     return x
 
 
@@ -695,7 +861,9 @@ def decode_step_paged(p, cfg, token: torch.Tensor, cache: dict,
     return _decode_layers(p, cfg, x, cache, attend, live=live), cache
 
 
-__all__ = ["PAGED_KINDS", "cache_len_for", "decode_step",
+__all__ = ["PAGED_KINDS", "cache_len_for", "cache_logical_axes_tree",
+           "decode_step",
            "decode_step_paged", "effective_window", "init_cache_tree",
-           "init_paged_cache_tree", "prefill", "prefill_chunk",
+           "init_paged_cache_tree", "paged_cache_logical_axes_tree", "prefill",
+           "prefill_chunk",
            "write_cache_slot"]

@@ -32,6 +32,18 @@ A ``Request`` carries tokens only, so every scheduler refuses the vlm,
 encdec and audio kinds, as the reference's do (their frontends'
 patches and frames have no place in it); they are served in the serve
 CLI's direct mode.
+
+With ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``, the
+params placed by ``serving.sharding.shard_params``) every scheduler
+serves sharded: the caches are DTensors placed by
+``SERVE_CACHE_RULES``, the sampled tokens and the held logits take the
+placements that table gives them
+(``serving.sharding.token_placements``), and admission and decode run
+under :func:`repro_torch.dist.use_mesh`, so the models' hints resolve
+against it. The ranks run the same scheduler (SPMD): the host state —
+queue, slots, page table, positions, page map — is the same on every
+rank, the sampler reads the whole logits on every rank from one seed,
+and the sampled tokens are the same everywhere.
 """
 from __future__ import annotations
 
@@ -42,6 +54,8 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import (
+    distribute_like, is_dtensor, use_mesh, write_rows)
 from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.transformer import FRONTEND_KINDS
 from repro_torch.obs.sink import NULL_OBS
@@ -120,14 +134,18 @@ class SchedulerStats:
 
 
 class _SchedulerBase:
-    """Shared request plumbing: queue, slots, padding, sampling."""
+    """Shared request plumbing: queue, slots, padding, sampling.
+
+    With ``mesh``, the placements of the sampled tokens and the held
+    logits are resolved once from ``SERVE_CACHE_RULES``, and the caches
+    are built in that table's layout."""
 
     def __init__(self, model: ModelApi, *, slots: int = 4,
                  max_prompt: int = 64, max_total: int = 128,
                  temperature: float = 0.0, seed: int = 0,
                  cache_dtype=torch.float32, obs=NULL_OBS,
                  device: DeviceLike = None,
-                 ssd_kernel: Optional[bool] = None):
+                 ssd_kernel: Optional[bool] = None, mesh=None):
         if max_prompt > max_total:
             raise ValueError(f"max_prompt {max_prompt} exceeds max_total "
                              f"{max_total}")
@@ -151,9 +169,37 @@ class _SchedulerBase:
         self.active: list[Optional[Request]] = [None] * slots
         self.stats = SchedulerStats()
         self.obs = obs
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.serving.sharding import token_placements
+            self._token_place, self._logits_place = token_placements(
+                model, mesh, slots)
         # the step clock: one tick per step() call (admission attempts
         # and decode steps alike) — all Request stamps use this clock
         self.clock = 0
+
+    def _mesh_ctx(self):
+        """Ambient-mesh context for admission and decode: the in-model
+        ``hint`` calls resolve against it; no mesh when serving
+        unsharded."""
+        return use_mesh(self.mesh)
+
+    def _logits_buffer(self) -> torch.Tensor:
+        """The held logits of every slot, (slots, 1, V) float32 zeros, in
+        the resolved logits layout under a mesh."""
+        shape = (self.slots, 1, self.model.cfg.padded_vocab)
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=torch.float32,
+                               device=self.device)
+        from torch.distributed.tensor import zeros
+        return zeros(shape, dtype=torch.float32, device_mesh=self.mesh,
+                     placements=list(self._logits_place))
+
+    def _pinned(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits out of a step, in the resolved logits layout."""
+        if self.mesh is None or not is_dtensor(logits):
+            return logits
+        return logits.redistribute(self.mesh, list(self._logits_place))
 
     def _tensor(self, array, dtype=torch.int32) -> torch.Tensor:
         """A host array on the scheduler's device."""
@@ -216,6 +262,10 @@ class _SchedulerBase:
         return None
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(logits):
+            # every rank samples the whole batch from the same stream,
+            # so the tokens agree everywhere and match the unsharded run
+            logits = logits.full_tensor()
         return sample_tokens(
             logits, temperature=self.temperature,
             generator=self.generator if self.temperature > 0 else None)
@@ -245,9 +295,13 @@ class _SchedulerBase:
         emitted = self._emit(tok[:, 0].cpu().numpy())
         if not any(r is not None for r in self.active):
             return emitted
+        if self.mesh is not None:
+            tok = distribute_like(tok, self.mesh, self._token_place)
         with self.obs.span("decode_step", step=self.clock):
-            self._last_logits, self._cache = self._decode(
-                params, tok, self._cache, self._pos)
+            with self._mesh_ctx():
+                logits, self._cache = self._decode(params, tok, self._cache,
+                                                   self._pos)
+            self._last_logits = self._pinned(logits)
         self._pos = self._pos + 1
         self.stats.decode_steps += 1
         self.stats.slot_steps += self.slots
@@ -320,13 +374,15 @@ class BatchScheduler(_SchedulerBase):
                 lens[i] = len(r.prompt)
         with self.obs.span("prefill", wave=self.stats.prefills,
                            requests=int((lens > 0).sum())):
-            logits, cache, pos = self.model.prefill(
-                params, {"tokens": self._tensor(toks)}, dtype=torch.float32,
-                cache_dtype=self.cache_dtype, cache_len=self.max_total,
-                lengths=self._tensor(lens), use_kernel=self.ssd_kernel)
+            with self._mesh_ctx():
+                logits, cache, pos = self.model.prefill(
+                    params, {"tokens": self._tensor(toks)},
+                    dtype=torch.float32, cache_dtype=self.cache_dtype,
+                    cache_len=self.max_total, lengths=self._tensor(lens),
+                    use_kernel=self.ssd_kernel)
         self._cache = cache
         self._pos = pos             # (slots,) = per-request prompt length
-        self._last_logits = logits
+        self._last_logits = self._pinned(logits)
         self.stats.prefills += 1
         return True
 
@@ -354,12 +410,11 @@ class ContinuousScheduler(_SchedulerBase):
     def __init__(self, model: ModelApi, **kw):
         super().__init__(model, **kw)
         self._cache = model.init_cache(self.slots, self.max_total,
-                                       self.cache_dtype, device=self.device)
+                                       self.cache_dtype, device=self.device,
+                                       mesh=self.mesh)
         self._pos = torch.zeros((self.slots,), dtype=torch.int32,
                                 device=self.device)
-        self._last_logits = torch.zeros(
-            (self.slots, 1, model.cfg.padded_vocab), dtype=torch.float32,
-            device=self.device)
+        self._last_logits = self._logits_buffer()
 
     def _decode(self, params, tok, cache, pos):
         return self.model.decode_step(params, tok, cache, pos,
@@ -378,7 +433,8 @@ class ContinuousScheduler(_SchedulerBase):
             self.active[i] = req
             toks = np.zeros((1, self.max_prompt), np.int32)
             toks[0, : len(req.prompt)] = req.prompt
-            with self.obs.span("prefill", slot=i, rid=req.rid):
+            with self.obs.span("prefill", slot=i, rid=req.rid), \
+                    self._mesh_ctx():
                 lg1, c1, p1 = self.model.prefill(
                     params, {"tokens": self._tensor(toks)},
                     dtype=torch.float32, cache_dtype=self.cache_dtype,
@@ -387,7 +443,7 @@ class ContinuousScheduler(_SchedulerBase):
                     use_kernel=self.ssd_kernel)
                 self.model.write_cache_slot(self._cache, c1, i,
                                             pos=self._pos, one_pos=p1[0])
-                self._last_logits[i:i + 1] = lg1
+                write_rows(self._last_logits, lg1, i, 0)
             self.stats.prefills += 1
             admitted += 1
         return admitted
@@ -468,12 +524,10 @@ class PagedContinuousScheduler(_SchedulerBase):
 
         self._cache = model.init_paged_cache(
             self.slots, cache_pages, page_size, self.cache_dtype,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         self._pos = torch.zeros((self.slots,), dtype=torch.int32,
                                 device=self.device)
-        self._last_logits = torch.zeros(
-            (self.slots, 1, model.cfg.padded_vocab), dtype=torch.float32,
-            device=self.device)
+        self._last_logits = self._logits_buffer()
 
     # -- page planning --------------------------------------------------
     def _plan_pages(self, req: Request, budget: int):
@@ -577,12 +631,13 @@ class PagedContinuousScheduler(_SchedulerBase):
                 toks = np.zeros((1, C), np.int32)
                 toks[0, :valid] = req.prompt[start:start + valid]
                 with self.obs.span("prefill_chunk", slot=slot,
-                                   rid=req.rid, start=start):
+                                   rid=req.rid, start=start), \
+                        self._mesh_ctx():
                     _, lg = self.model.prefill_chunk(
                         params, self._cache, self._tensor(toks), start,
                         valid, row, slot, dtype=torch.float32,
                         use_kernel=self.ssd_kernel)
-                    self._last_logits[slot:slot + 1] = lg
+                    write_rows(self._last_logits, lg, slot, 0)
                 req.prefill_chunks += 1
                 job["start"] = start + valid
                 if job["start"] >= plen:

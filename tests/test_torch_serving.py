@@ -656,8 +656,11 @@ def test_non_dense_kinds_and_unported_flags_raise():
         assert serve_cli.main(["--arch", arch, "--reduced", "--batch", "2",
                                "--prompt-len", "8", "--gen", "2",
                                "--device", "cpu"]) == 0
-    # --trace-dir and --profile are ported (tests/test_torch_obs.py)
-    for flags, item in ((["--mesh", "host"], "item 8"),
-                        (["--host-devices", "8"], "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_cli.main(["--reduced", "--device", "cpu"] + flags)
+    # --trace-dir and --profile are ported (tests/test_torch_obs.py), and
+    # so are --mesh and --host-devices (tests/test_torch_serving_sharded.py):
+    # --mesh host serves over a world of one rank; --host-devices refuses
+    # a run that is not on the CPU
+    assert serve_cli.main(["--reduced", "--device", "cpu", "--mesh",
+                           "host", "--gen", "2"]) == 0
+    with pytest.raises(ValueError, match="--device cpu"):
+        serve_cli.main(["--reduced", "--host-devices", "8"])
