@@ -250,6 +250,28 @@ caught):
              (8 x 512 + 16) teacher-forced, logits within 1e-4 of max
              |logit| of its bare run. It prints each run's tokens/s and
              wall and the mesh's overhead.
+7b'. dryrun — the port's dry run: ``python -m repro_torch.launch.dryrun``
+             for qwen1.5-0.5b's train_4k step and its paged serving pair
+             on the 256-rank pod mesh (a fake process group, sizes only,
+             subprocesses on the host started first and read last: status
+             ok, 256 chips, a dominant term, FLOPs counted) and a
+             (64, 896) @ (896, 4864) product sharded over that mesh,
+             counted as the rank's 2,179,072 FLOPs; ``build_program``'s
+             train step on a (1, 1) NCCL mesh at qwen's full width,
+             train_4k cut to 2 x 4,096 tokens: 3 SGD steps and 1 AdamW
+             step at ``accum_steps_for``'s accumulation and at 2 (loss
+             rtol 1e-5, params 1e-5; AdamW's params where its step is
+             well conditioned, see ``adamw_close``), the SGD program
+             against ``loss.backward()`` and ``w -= lr g`` (1e-6), the
+             dry run's FLOPs of the same program equal to the executed
+             step's; the ``--sync tthf-fused-interval`` program
+             (``build_tthf_program``) at 2 of qwen's layers on the same
+             mesh: ``fused_consensus_sgd`` launched once a block
+             (counted as ``dryrun``), held to the unsharded interval
+             (1e-6); ``flash_attention_pairs`` against
+             ``flash_attention`` at 4,096 tokens with qwen's heads,
+             causal and sliding (outputs 2e-5 of max |out|, gradients
+             5e-5 relative L2), its blocks and both times.
 7b. vlm   — the serve CLI's direct mode (``launch/serve.py --arch
              paligemma-3b --batch 8 --prompt-len 1920 --gen 64
              --temperature 0``, ``main(argv)`` on the card, random f32
@@ -2016,16 +2038,12 @@ def ssd_group_inputs(shape, dtype, seed=0, copies=1):
 def ssd_work(shape) -> tuple[int, int]:
     """(bytes, operations) the grouped call needs: x and y, dt and loga
     and h per row, B and C per group, each read or written once; the
-    causal half of G = C Bᵀ once per (group, chunk), per (row, chunk) the
-    causal half of M X and the carry, and per (row, chunk after the
-    first) the carried-state term (the first chunk starts from zero)."""
+    operations are the kernel module's own count (``ssd_work`` there,
+    also what the wrapper charges on fake tensors)."""
+    from repro_torch.kernels.ssd_scan import ssd_work as operations
     b, H, T, P, S, Q = shape
-    nc = -(-T // Q)
     bytes_moved = 4 * (b * H * (2 * T * P + 2 * T + S * P) + b * 2 * T * S)
-    flops = (b * nc * Q * (Q + 1) * S
-             + b * H * (nc * (Q * (Q + 1) * P + 2 * Q * S * P)
-                        + (nc - 1) * 2 * Q * S * P))
-    return bytes_moved, flops
+    return bytes_moved, operations(b, H, T, P, S, Q)
 
 
 def phase_ssd_kernel() -> dict:
@@ -4143,6 +4161,361 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the dry run: sizes-only programs on the production mesh, and the same
+# step builders executed on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARGV = {
+    "train": ["--arch", "qwen1.5-0.5b", "--shape", "train_4k", "--mesh",
+              "pod", "--out", "-"],
+    "paged serve": ["--serve", "--paged", "--arch", "qwen1.5-0.5b",
+                    "--mesh", "pod", "--out", "-"],
+}
+DRYRUN_CUT = (2, 4096)          # train_4k's 4,096 tokens, 2 sequences
+DRYRUN_LR = 1e-3
+PAIRS_T = 4096
+PAIRS_WINDOW = 1024
+# the --sync tthf-fused-interval program on one card: depth, tokens,
+# microsteps and the block-end period
+SYNC_LAYERS, SYNC_T, SYNC_B, SYNC_TAU, SYNC_CE, SYNC_R = 2, 512, 4, 4, 2, 2
+
+
+# a product whose rows go over ``data`` and columns over ``model`` on the
+# pod mesh: the counter must give the rank's share, whatever this torch's
+# DTensor dispatch does around it
+RANK_SHARE = """
+import json, torch
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import Program
+mesh = dryrun.production_mesh("pod")
+fn = Program(lambda x, y: (x @ y).full_tensor(), mesh,
+             ((Shard(0), Replicate()), (Replicate(), Shard(1))))
+rec, _, _ = dryrun.trace(fn, (torch.empty((64, 896), device="meta"),
+                              torch.empty((896, 4864), device="meta")))
+print(json.dumps({"flops": rec.flops, "counts": rec.coll_counts}))
+"""
+
+
+def dryrun_start() -> dict:
+    """Both sizes-only dry runs as a user runs them, and the rank-share
+    check, in subprocesses on the host's CPU (they place nothing on the
+    card)."""
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = {name: ["-m", "repro_torch.launch.dryrun", *argv]
+            for name, argv in DRYRUN_ARGV.items()}
+    runs["rank share"] = ["-c", RANK_SHARE]
+    return {name: (time.time(), subprocess.Popen(
+        [sys.executable, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env))
+        for name, argv in runs.items()}
+
+
+def dryrun_finish(procs: dict) -> dict:
+    """Each dry run's record, held to the contract: status ok on 256
+    ranks, a dominant term, FLOPs counted (the train step's within 1 % of
+    a rank's share of the model's); the product counted as the
+    rank's share (2,179,072 FLOPs, not the global 557,842,432) with two
+    all-gathers."""
+    recs = {}
+    for name, (t0, proc) in procs.items():
+        out, err = proc.communicate(timeout=900)
+        wall = time.time() - t0
+        assert proc.returncode == 0, (name, err[-3000:])
+        rec = json.loads(out.strip().splitlines()[-1])
+        if name == "rank share":
+            assert rec["flops"] == 2 * 4 * 896 * 304, rec
+            assert rec["counts"]["all-gather"] == 2, rec
+            log(f"[dryrun] (64, 896) @ (896, 4864) on the 256-rank pod "
+                f"mesh: {rec['flops']:.0f} FLOPs a rank (the global "
+                f"557842432 / 256), {rec['counts']}")
+            continue
+        assert rec["status"] == "ok" and rec["chips"] == 256, rec
+        assert rec["dominant"] in ("compute", "memory", "collective"), rec
+        assert rec["flops_dev"] > 0, rec
+        if name == "train":
+            # every projection tensor parallel: 6 N D over the ranks plus
+            # the rectangular flash sweep (7 products of 2 T^2 H hd)
+            T, B, L, hd = 4096, 256, 24, 16 * 64
+            want = rec["model_flops"] + 7 * 2 * T * T * hd * L * B / 256
+            assert 0.99 < rec["flops_dev"] / want < 1.01, (rec, want)
+            log(f"[dryrun] train flops/rank {rec['flops_dev']:.4e} = "
+                f"{rec['flops_dev'] / want:.5f} x (6 N D + flash) / 256")
+        log(f"[dryrun] {name} (sizes only, 256 fake ranks, {wall:.1f} s "
+            f"wall): flops/rank {rec['flops_dev']:.4e}, bytes/rank "
+            f"{rec['bytes_dev']:.4e}, collective bytes/rank "
+            f"{rec['coll_bytes_dev']:.4e}; terms compute "
+            f"{rec['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rec['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rec['collective_s'] * 1e3:.3f} ms -> {rec['dominant']}")
+        recs[name] = rec
+    return recs
+
+
+def params_close(a: dict, b: dict) -> float:
+    import torch
+    from repro_torch.models.common import tree_leaves
+    with torch.no_grad():
+        return max(float((x - y).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def adamw_close(p_a, p_b, s_a, s_b, ratio: int) -> tuple:
+    """One AdamW step at accumulation A and lr / ratio against one at
+    accumulation A * ratio and lr: the moments of the summed gradients
+    are ``ratio`` (m) and ``ratio ** 2`` (v) times the others, to 1e-5
+    of their largest; the params to 1e-5 where the step is well
+    conditioned. AdamW's step g / (|g| + eps) turns a gradient's last-ulp
+    difference into up to 2 lr where |g| is near eps (the key bias's
+    gradient is 0 in exact arithmetic: softmax ignores a shift of every
+    score), so those params (|g| <= 1e-6) are held to 2 lr. Returns the
+    largest of the scaled differences and what it covered."""
+    import torch
+    from repro_torch.dist.sharding import local
+    from repro_torch.models.common import tree_leaves
+    worst, odd, n = 0.0, 0, 0
+    with torch.no_grad():
+        for name, k in (("m", ratio), ("v", ratio ** 2)):
+            for a, b in zip(tree_leaves(s_a[name]), tree_leaves(s_b[name])):
+                a, b = local(a), local(b)
+                top = float(b.abs().max()) or 1.0
+                worst = max(worst, float((k * a - b).abs().max()) / top)
+        for pa, pb, v in zip(tree_leaves(p_a), tree_leaves(p_b),
+                             tree_leaves(s_b["v"])):
+            good = (local(v) / (1 - 0.999)).sqrt() > 1e-6
+            d = (pa - pb).abs()
+            worst = max(worst, float(d[good].max()) if good.any() else 0.0)
+            assert float(d.max()) <= 2 * DRYRUN_LR, float(d.max())
+            odd += int((~good).sum())
+            n += good.numel()
+    return worst, (f"moments and params ({n - odd} of {n}; {odd} with "
+                   f"|g| <= 1e-6 within 2 lr)")
+
+
+def phase_dryrun() -> int:
+    """(a) ``python -m repro_torch.launch.dryrun`` for qwen1.5-0.5b's
+    train_4k step and its paged serving pair on the 256-rank pod mesh
+    (fake process group, sizes only), started first and read last; (b)
+    ``build_program``'s train step on a (1, 1) NCCL mesh at qwen's full
+    width, train_4k cut to 2 sequences: 3 SGD steps and 1 AdamW step at
+    ``accum_steps_for``'s accumulation and at 2, held together (loss
+    rtol 1e-5, params 1e-5), the SGD program to a hand-written
+    backward + update (1e-6), and the dry run's count of the program on
+    this mesh to the executed step's (FLOPs equal); (c)
+    ``flash_attention_pairs`` against ``flash_attention`` at 4,096
+    tokens with qwen's heads, causal and sliding."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.dist.sharding import local
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.cost import measure
+    from repro_torch.launch.steps import accum_steps_for, build_program
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import make_optimizer
+
+    procs = dryrun_start()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_arch("qwen1.5-0.5b")
+        model = build_model(cfg)
+        B, T = DRYRUN_CUT
+        shape = InputShape("train_4k", T, B, "train")
+        acc = accum_steps_for(cfg, shape, mesh)
+        rng = np.random.default_rng(0)
+        batches = [{k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(B, T)).astype(np.int32)).cuda()
+            for k in ("tokens", "labels")} for _ in range(3)]
+        idx = torch.zeros((), dtype=torch.int32, device="cuda")
+
+        def run(optimizer, accum, steps, lr=DRYRUN_LR):
+            params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                                "cuda")
+            fn, _ = build_program(model, shape, mesh, optimizer=optimizer,
+                                  dtype=torch.float32, lr=lr,
+                                  accum_steps=accum)
+            state = make_optimizer(optimizer).init(params)
+            losses, times = [], []
+            for b in batches[:steps]:
+                torch.cuda.synchronize()
+                t = time.time()
+                _, state, loss = fn(params, state, b, idx)
+                losses.append(float(local(loss)))
+                torch.cuda.synchronize()
+                times.append(time.time() - t)
+            return params, losses, times, state
+
+        for optimizer, steps in (("sgd", 3), ("adamw", 1)):
+            # the summed microbatch gradients take 1 / accum in the
+            # learning rate (the reference's fold, exact for SGD): AdamW,
+            # blind to the gradient's scale, then steps lr / accum, so
+            # accumulation 2 is held to lr / 2 at accumulation 1
+            scale = 1 if optimizer == "sgd" else 2 // acc
+            p_a, l_a, t_a, s_a = run(optimizer, acc, steps,
+                                     DRYRUN_LR / scale)
+            p_b, l_b, _, s_b = run(optimizer, 2, steps)
+            dl = max(abs(x - y) / abs(y) for x, y in zip(l_a, l_b))
+            if optimizer == "sgd":
+                dp, what = params_close(p_a, p_b), "params"
+            else:
+                dp, what = adamw_close(p_a, p_b, s_a, s_b, 2 // acc)
+            assert dl <= 1e-5 and dp <= 1e-5, (optimizer, dl, dp)
+            log(f"[dryrun] {optimizer}: {steps} steps of build_program's "
+                f"step at accumulation {acc} and 2 on a (1, 1) mesh "
+                f"({B} x {T} tokens, f32): losses {l_a}, max rel diff "
+                f"{dl:.2e}, {what} max |diff| {dp:.2e}; step "
+                f"{min(t_a):.3f} s")
+            if optimizer == "sgd":
+                sgd_params, step_s = p_a, min(t_a)
+            del p_a, p_b, s_a, s_b
+        # the SGD program against a hand-written backward + update
+        hand = model.init(torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+        for v in tree_leaves(hand):
+            v.requires_grad_(True)
+        for b in batches:
+            model.loss(hand, b, dtype=torch.float32).backward()
+            with torch.no_grad():
+                for v in tree_leaves(hand):
+                    v -= DRYRUN_LR * v.grad
+                    v.grad = None
+        dh = params_close(sgd_params, hand)
+        assert dh <= 1e-6, dh
+        log(f"[dryrun] sgd program against loss.backward() + w -= lr g, 3 "
+            f"steps: params max |diff| {dh:.2e} (tol 1e-6)")
+        del hand
+        # the dry run's count of this program against the executed step's
+        fn, args = build_program(model, shape, mesh, dtype=torch.float32,
+                                 lr=DRYRUN_LR, accum_steps=acc)
+        dry, _, t_trace = dryrun.trace(fn, args)
+        _, ran = measure(fn, sgd_params, (), batches[0], idx)
+        assert dry.flops == ran.flops > 0, (dry.flops, ran.flops)
+        log(f"[dryrun] (1, 1) mesh: the dry run's flops/rank "
+            f"{dry.flops:.6e} (traced in {t_trace:.1f} s) = the executed "
+            f"step's {ran.flops:.6e}; bytes {dry.bytes:.4e} (dry) "
+            f"{ran.bytes:.4e} (executed)")
+        log(f"[dryrun] {card_line()}: measured sgd step {step_s:.3f} s "
+            f"(f32, TF32 off) against roofline terms compute "
+            f"{dry.flops / PEAK_FLOPS:.4f} s (bf16 peak), "
+            f"{dry.flops / F32_FLOPS_PER_S:.4f} s (f32 peak), memory "
+            f"{dry.bytes / HBM_BW:.4f} s")
+        del sgd_params
+        torch.cuda.empty_cache()
+        launches = sync_interval_check(mesh)
+    finally:
+        dist.destroy_process_group()
+    pairs_check()
+    dryrun_finish(procs)
+    return launches
+
+
+def sync_interval_check(mesh) -> int:
+    """The dry run's ``--sync tthf-fused-interval`` program
+    (``build_tthf_program``) executed on the (1, 1) mesh at 2 of qwen's
+    24 layers (full width): 2 replicas in one cluster, a block end
+    every 2 of 4 microsteps through ``fused_consensus_sgd``. Its launches are counted
+    (reset just before); the same interval through the unsharded
+    ``make_tthf_train_step`` holds it (1e-6). Returns the launches."""
+    import torch
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.core.distributed import (
+        FlatParamSpec, TTHFScaleConfig, make_tthf_train_step,
+        stack_replicas)
+    from repro_torch.dist.sharding import local
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    model = build_model(dataclasses.replace(get_arch("qwen1.5-0.5b"),
+                                            num_layers=SYNC_LAYERS))
+    fn, args = dryrun.build_tthf_program(
+        model, InputShape("train_4k", SYNC_T, SYNC_B, "train"), mesh,
+        "tthf", "fused", tau=SYNC_TAU, consensus_every=SYNC_CE,
+        fused_interval=True, replicas=SYNC_R)
+    R = args[0].shape[0]
+    flat = FlatParamSpec.for_model(model).flatten(stack_replicas(
+        model.init(torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        R))
+    tb = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 32_000, size=tuple(args[1]["tokens"].shape)).astype(
+            np.int32)).cuda()
+    batch = {"tokens": tb, "labels": tb.roll(1, dims=-1)}
+    picks = torch.zeros(tuple(args[2].shape), dtype=torch.int32,
+                        device="cuda")
+    fused_consensus_sgd.launches = 0
+    got, loss = fn(flat.clone(), batch, picks, picks[0])
+    torch.cuda.synchronize()
+    launches = fused_consensus_sgd.launches
+    assert launches == SYNC_TAU // SYNC_CE, launches
+    step, _ = make_tthf_train_step(
+        model, TTHFScaleConfig(replicas=R, cluster_size=R, tau=SYNC_TAU,
+                               consensus_every=SYNC_CE, gamma_d2d=2,
+                               consensus_mode="fused", lr=1e-2,
+                               graph="ring"),
+        dtype=torch.bfloat16, fused_interval=True, device="cuda")
+    want, wloss = step(flat.clone(), batch, picks)
+    err = float((local(got) - want).abs().max())
+    dl = abs(float(local(loss)) - float(wloss))
+    assert err <= 1e-6 and dl <= 1e-6 * abs(float(wloss)), (err, dl)
+    log(f"[dryrun] --sync tthf-fused-interval program on the (1, 1) mesh "
+        f"({SYNC_LAYERS} of qwen's layers, {R} replicas, tau {SYNC_TAU}, a "
+        f"block end every {SYNC_CE}, {SYNC_B} x {SYNC_T} tokens): "
+        f"fused_consensus_sgd launches {launches}; against the unsharded "
+        f"interval: params max |diff| {err:.2e}, loss {float(wloss):.6f}")
+    return launches
+
+
+def pairs_check() -> None:
+    """``flash_attention_pairs`` against ``flash_attention`` on one
+    4,096-token sequence with qwen's heads: outputs within 2e-5 of max
+    |out|, gradients within 5e-5 relative L2."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn
+
+    cfg = get_arch("qwen1.5-0.5b")
+    K, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, PAIRS_T, K, G, hd), generator=gen, device="cuda")
+    k = torch.randn((1, PAIRS_T, K, hd), generator=gen, device="cuda")
+    v = torch.randn((1, PAIRS_T, K, hd), generator=gen, device="cuda")
+    dout = torch.randn((1, PAIRS_T, K, G, hd), generator=gen, device="cuda")
+    qc = 512
+    for mode, window in (("causal", 0), ("sliding", PAIRS_WINDOW)):
+        def grads(fa, **kw):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fa(*leaves, mode=mode, window=window, **kw)
+            out.backward(dout)
+            return out.detach(), [t.grad for t in leaves]
+
+        out_p, g_p = grads(attn.flash_attention_pairs, q_chunk=qc,
+                           k_chunk=qc)
+        out_f, g_f = grads(attn.flash_attention, q_chunk=qc, k_chunk=1024)
+        err = float((out_p - out_f).abs().max() / out_f.abs().max())
+        gerr = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(g_p, g_f))
+        assert err <= 2e-5 and gerr <= 5e-5, (mode, err, gerr)
+        n = PAIRS_T // qc
+        pairs = len(attn._block_pairs(n, n, qc, qc, mode, window, None, 0))
+        ms_p = cuda_ms(lambda: grads(attn.flash_attention_pairs,
+                                     q_chunk=qc, k_chunk=qc), 3)
+        ms_f = cuda_ms(lambda: grads(attn.flash_attention, q_chunk=qc,
+                                     k_chunk=1024), 3)
+        log(f"[dryrun] flash_attention_pairs ({mode}, {PAIRS_T} tokens, K "
+            f"{K}, G {G}, hd {hd}): out max |diff| {err:.2e} of max |out|,"
+            f" grads {gerr:.2e} rel L2; {pairs} of {n * n} ({qc} x {qc}) "
+            f"blocks (flash_attention's sweep: {n * (PAIRS_T // 1024)} of "
+            f"{qc} x 1024); forward + backward {ms_p:.2f} ms against "
+            f"{ms_f:.2f} ms")
+
+
 def profile_main_path(fn, label: str) -> None:
     """Device time by kernel and the device's busy share over one run
     of a main path (torch.profiler, CUDA activity only: recording every
@@ -4203,6 +4576,7 @@ PARTIAL_PHASES = {
     "audio": phase_audio,
     "obs": phase_obs,
     "serve-mesh": phase_serve_mesh,
+    "dryrun": phase_dryrun,
 }
 
 
@@ -4287,6 +4661,10 @@ def main() -> int:
     for name, n in timed("serve-mesh", phase_serve_mesh,
                          profile=profile).items():
         by_path[name]["serve-mesh"] = n
+    # the dry run's programs: sizes only on the pod mesh, and executed
+    # on the card (its --sync tthf-fused-interval program through
+    # fused_consensus_sgd)
+    by_path["fused_consensus_sgd"]["dryrun"] = timed("dryrun", phase_dryrun)
     # the vlm and audio kinds in direct serving (no kernel on their path)
     timed("vlm", phase_vlm, profile=profile)
     timed("audio", phase_audio, profile=profile)

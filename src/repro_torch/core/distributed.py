@@ -69,6 +69,8 @@ class TTHFScaleConfig:
     lr: float = 1e-2
     sample_per_cluster: int = 1
     graph: str = "ring"
+    granularity: str = "dp"         # dp (replica = data rank) | pod; it
+                                    # sets the shardings only
     seed: int = 0
 
     @property
@@ -280,6 +282,79 @@ def full_aggregation_flat(flat: torch.Tensor, net: Network) -> torch.Tensor:
                       flat.shape)
 
 
+# ---------------------------------------------------------------------------
+# sharding plumbing
+# ---------------------------------------------------------------------------
+
+def replica_axes_tree(axes_tree: dict) -> dict:
+    """Prefix every logical-axes tuple with the replica axis."""
+    return tree_map(lambda a: ("replica",) + tuple(a), axes_tree)
+
+
+TTHF_PARAM_RULES = (
+    ("replica", ("pod", "data")),
+    # within-replica: tensor parallel over model ONLY (a replica must be
+    # self-contained — no fsdp over the replica axes)
+    ("embed", None),
+    ("embed_nomodel", None),
+    ("embed_fsdp", None),
+    ("vocab", "model"),
+    ("q_proj", "model"),
+    ("kv_proj", "model"),
+    ("ffn", "model"),
+    ("experts", "model"),
+    ("expert_ffn", None),
+    ("experts_router", None),
+    ("ssm_in", "model"),
+    ("ssm_heads", "model"),
+    ("ssm_state", None),
+    ("rnn_width", "model"),
+    ("rnn_width_in", None),
+    ("conv_k", None),
+    ("layers", None),
+    ("batch", None),
+)
+
+
+def tthf_rules(scale: TTHFScaleConfig):
+    """The replicated params' rule table. ``granularity == "pod"``: the
+    replica axis maps to ``pod`` only and each replica FSDP-shards its
+    weights over ``data`` — how the 400B MoE holds divergent TT-HF
+    copies (a 16-chip replica cannot)."""
+    from repro_torch.dist.sharding import ShardingRules
+    table = dict(TTHF_PARAM_RULES)
+    if scale.granularity == "pod":
+        table.update(replica=("pod",), embed=("data",),
+                     embed_fsdp=("data",), rnn_width_in=("data",),
+                     batch="data")
+    elif scale.granularity != "dp":
+        raise ValueError(f"granularity must be 'dp' or 'pod', got "
+                         f"{scale.granularity!r}")
+    return ShardingRules(tuple(table.items()))
+
+
+def tthf_shardings(model: ModelApi, scale: TTHFScaleConfig, mesh,
+                   param_dtype=torch.float32):
+    """(``meta`` replicated params (R, ...), their placements tree, the
+    (tau, R, b, T) batch's placements) on ``mesh``, a ``DeviceMesh`` or
+    an ``AbstractMesh``. The batch's replica dim goes over the replica
+    axes and, at pod granularity, its rows over ``data``; mesh axes the
+    mesh lacks are dropped, so one table serves the single-pod (data,
+    model) mesh."""
+    from repro_torch.dist.sharding import placements
+    rules = tthf_rules(scale)
+    p_abs, axes = model.abstract_params(dtype=param_dtype)
+    R = scale.replicas
+    p_abs_R = tree_map(lambda s: torch.empty((R,) + tuple(s.shape),
+                                             dtype=s.dtype, device="meta"),
+                       p_abs)
+    sh = tree_map(lambda a: placements(rules.spec(tuple(a), mesh), mesh),
+                  replica_axes_tree(axes))
+    batch = placements(rules.spec((None, "replica", "batch", None), mesh),
+                       mesh)
+    return p_abs_R, sh, batch
+
+
 def stack_replicas(params: dict, replicas: int) -> dict:
     """w_i^(0) = w_hat^(0): identical initial copies (server broadcast),
     materialized so that each replica can be updated in place."""
@@ -290,6 +365,90 @@ def stack_replicas(params: dict, replicas: int) -> dict:
 # ---------------------------------------------------------------------------
 # the TT-HF interval step
 # ---------------------------------------------------------------------------
+
+class _AllRows:
+    """Every replica row lives here (one device)."""
+
+    @staticmethod
+    def cross(fn, x):
+        return fn(x)
+
+    @staticmethod
+    def mean(loss):
+        return loss
+
+
+ALL_ROWS = _AllRows()
+
+
+class MeshRows:
+    """This rank holds its share of the replica rows: the replica dim
+    is split over the mesh axes ``axes`` (``("pod", "data")`` or
+    ``("pod",)``; those the mesh lacks are skipped), in mesh order.
+
+    A cross-replica op (a D2D mix, an aggregation, the fused block end)
+    maps each column over the replica axis alone, so it runs on columns:
+    all-to-alls over the replica axes turn the rank's rows (r, M) into
+    every replica's rows of a 1/n slice of the columns (R, M / n), the
+    op runs there, and the inverse all-to-alls bring the rank's rows
+    back; no rank holds more than its share. The loss is the mean over
+    every rank's replicas."""
+
+    def __init__(self, mesh, axes):
+        names = tuple(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes if a in names]
+        # the innermost axis first: its ranks hold adjacent rows
+        self.groups = [mesh.get_group(d) for d in reversed(dims)
+                       if mesh.size(d) > 1]
+        self.ranks = 1
+        for d in dims:
+            self.ranks *= mesh.size(d)
+
+    @staticmethod
+    def _swap(t: torch.Tensor, group, to_columns: bool) -> torch.Tensor:
+        """One all-to-all over ``group`` (n ranks): (r, M) rows -> (n r,
+        M / n) columns, or back."""
+        import torch.distributed as dist
+        n = dist.get_world_size(group)
+        if to_columns:
+            r, M = t.shape
+            t = t.reshape(r, n, M // n).transpose(0, 1).reshape(n * r, -1)
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        if to_columns:
+            return out
+        r = out.shape[0] // n
+        return out.reshape(n, r, -1).transpose(0, 1).reshape(r, -1)
+
+    def _columns(self, t: torch.Tensor) -> torch.Tensor:
+        pad = (-t[0].numel()) % self.ranks
+        t = torch.nn.functional.pad(t.reshape(t.shape[0], -1), (0, pad))
+        for g in self.groups:
+            t = self._swap(t, g, to_columns=True)
+        return t
+
+    def _rows(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        for g in reversed(self.groups):
+            t = self._swap(t, g, to_columns=False)
+        return t[:, :like[0].numel()].reshape(like.shape)
+
+    def cross(self, fn, x):
+        if not self.groups:
+            return fn(x)
+        if isinstance(x, dict):
+            out = fn(tree_map(self._columns, x))
+            return tree_map(self._rows, out, x)
+        if isinstance(x, tuple):
+            return self._rows(fn(tuple(self._columns(t) for t in x)), x[0])
+        return self._rows(fn(self._columns(x)), x)
+
+    def mean(self, loss):
+        import torch.distributed as dist
+        loss = loss.clone()
+        for g in self.groups:
+            dist.all_reduce(loss, group=g)
+        return loss / self.ranks
+
 
 def _loss_and_grads(model: ModelApi, params: dict, mb: dict, dtype):
     """One replica's loss and its gradients (the reference's
@@ -337,7 +496,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
                          hierarchy=None, fused_interval: bool = False,
                          fused_kernel: Optional[bool] = None,
                          param_dtype=torch.float32,
-                         device: DeviceLike = None):
+                         device: DeviceLike = None, rows=None):
     """Returns ``(step, net)``; ``step(params, batch, agg, step_idx=None,
     mix_refresh=None) -> (params, loss)`` runs one aggregation interval.
 
@@ -374,11 +533,16 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
     per-event semantics on the flat buffer.
     sync: "tthf" (Algorithm 1) | "star" (FedAvg: full participation, no
     D2D) | "local" (no sync at all — diagnostics).
+
+    ``rows``: where the replica rows live (:class:`MeshRows`; default,
+    all of them here). The microsteps run on the rows given; the mixes,
+    the aggregation and the reported loss go through ``rows``.
     """
     if hierarchy is not None and hierarchy.is_flat:
         hierarchy = None            # plain TT-HF
     _check(scale, sync, hierarchy)
     device = resolve_device(device)
+    rows = rows or ALL_ROWS
     net = scale.network()
     n_blocks = scale.tau // scale.consensus_every
     plan: Optional[MixingPlan] = None
@@ -418,7 +582,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
             model, scale, net=net, plan=plan, n_blocks=n_blocks,
             block_batches=block_batches, aggregate=aggregate,
             mix_active=mix_active, dtype=dtype, fused_kernel=fused_kernel,
-            param_dtype=param_dtype, device=device)
+            param_dtype=param_dtype, device=device, rows=rows, sync=sync)
 
     def microstep(params, mb, lr):
         """Per-replica SGD (eqs. 8-9), in place — no cross-replica
@@ -436,8 +600,6 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         return _mean(losses)
 
     def mix(params, refresh):
-        if not mix_active(refresh):
-            return params
         N, s = net.num_clusters, net.cluster_size
         return tree_map(lambda l: plan.apply(l.reshape(N, s, -1),
                                              refresh=refresh)
@@ -449,10 +611,13 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         for b in range(n_blocks):
             losses = [microstep(params, mb, lr)
                       for mb in block_batches(batch, b)]
-            params = mix(params, mix_refresh)
+            if mix_active(mix_refresh):
+                params = rows.cross(lambda p: mix(p, mix_refresh), params)
             block_losses.append(_mean(losses))
-        params = aggregate(params, agg, flat=False)
-        return params, _mean(block_losses)
+        if sync != "local":
+            params = rows.cross(lambda p: aggregate(p, agg, flat=False),
+                                params)
+        return params, rows.mean(_mean(block_losses))
 
     return step, net
 
@@ -462,7 +627,7 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                               n_blocks: int, block_batches, aggregate,
                               mix_active, dtype,
                               fused_kernel: Optional[bool], param_dtype,
-                              device: torch.device):
+                              device: torch.device, rows, sync: str):
     """The ``fused_interval=True`` build — see ``make_tthf_train_step``.
 
     The arithmetic is the per-leaf step's: gradients of the same tree
@@ -516,34 +681,38 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                 # read-w / read-g / write-mixed-w pass
                 losses = [sgd(flat, mb, lr) for mb in mbs[:-1]]
                 g, last = grad_flat(flat, mbs[-1])
-                flat = fused_consensus_sgd(
-                    flat.view(N, s, -1), g.view(N, s, -1), W0, lr
-                ).view(flat.shape)
+                flat = rows.cross(lambda fg: fused_consensus_sgd(
+                    fg[0].view(N, s, -1), fg[1].view(N, s, -1), W0, lr
+                ).view(fg[0].shape), (flat, g))
                 del g
                 losses.append(last)
             else:
                 losses = [sgd(flat, mb, lr) for mb in mbs]
                 if W0 is not None:
-                    flat = torch.einsum(
-                        "nij,njm->nim", W0.to(flat.dtype),
-                        flat.view(N, s, -1)).reshape(flat.shape)
+                    flat = rows.cross(lambda f: torch.einsum(
+                        "nij,njm->nim", W0.to(f.dtype),
+                        f.view(N, s, -1)).reshape(f.shape), flat)
                 elif active:
                     # non-fused_power backend: exact per-event semantics
-                    flat = plan.apply(flat.view(N, s, -1),
-                                      refresh=mix_refresh
-                                      ).reshape(flat.shape).to(flat.dtype)
+                    flat = rows.cross(lambda f: plan.apply(
+                        f.view(N, s, -1), refresh=mix_refresh
+                    ).reshape(f.shape).to(f.dtype), flat)
             block_losses.append(_mean(losses))
-        flat = aggregate(flat, agg, flat=True)
-        return flat, _mean(block_losses)
+        if sync != "local":
+            flat = rows.cross(lambda f: aggregate(f, agg, flat=True), flat)
+        return flat, rows.mean(_mean(block_losses))
 
     step.spec = spec
     return step, net
 
 
 __all__ = [
-    "FlatParamSpec", "LANE", "MATRIX_BLOCK_COLS", "SYNCS", "TTHFScaleConfig",
+    "ALL_ROWS", "FlatParamSpec", "LANE", "MATRIX_BLOCK_COLS", "MeshRows",
+    "SYNCS",
+    "TTHF_PARAM_RULES", "TTHFScaleConfig",
     "apply_device_matrix_flat", "apply_device_matrix_pytree",
     "full_aggregation", "full_aggregation_flat", "make_tthf_train_step",
-    "sampled_aggregation", "sampled_aggregation_flat", "stack_replicas",
+    "replica_axes_tree", "sampled_aggregation", "sampled_aggregation_flat",
+    "stack_replicas", "tthf_rules", "tthf_shardings",
     "weighted_aggregation", "weighted_aggregation_flat",
 ]

@@ -56,7 +56,11 @@ def canonical_backend(name: str) -> str:
     return backend
 
 
-def _max_rounds(gamma: torch.Tensor) -> int:
+def _max_rounds(gamma: torch.Tensor, rounds: Optional[int] = None) -> int:
+    """The rounds a loop runs: ``rounds`` where the caller knows them on
+    the host, else the largest gamma (read from its device)."""
+    if rounds is not None:
+        return rounds
     return int(gamma.max()) if gamma.numel() else 0
 
 
@@ -93,9 +97,9 @@ def matrix_powers(V: torch.Tensor, gamma: Any) -> torch.Tensor:
 # backend implementations — all (N, s, M) x (N, s, s) x (N,) -> (N, s, M)
 # ---------------------------------------------------------------------------
 
-def _mix_masked_loop(z, V, gamma):
+def _mix_masked_loop(z, V, gamma, rounds=None):
     Vz = V.to(z.dtype)
-    for r in range(_max_rounds(gamma)):
+    for r in range(_max_rounds(gamma, rounds)):
         mixed = torch.einsum("nij,njm->nim", Vz, z)
         z = torch.where((r < gamma)[:, None, None], mixed, z)
     return z
@@ -114,14 +118,17 @@ def _mix_fused_power(z, V, gamma, W=None):
 
 def mix(z: torch.Tensor, V: torch.Tensor, gamma: Any, *,
         backend: str = "masked_loop", W: Optional[torch.Tensor] = None,
-        device_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        device_mask: Optional[torch.Tensor] = None,
+        rounds: Optional[int] = None) -> torch.Tensor:
     """Apply per-cluster consensus ``z_c <- V_c^{gamma_c} z_c``.
 
     z: (N, s, M); V: (N, s, s); gamma: scalar or (N,) int.
     ``W`` (fused_power only): precomputed stacked powers; derived when
     omitted. ``device_mask`` (N, s): drop devices via
     :func:`masked_consensus_matrix` before dispatch. Incompatible with a
-    precomputed ``W`` (powers must be taken AFTER masking).
+    precomputed ``W`` (powers must be taken AFTER masking). ``rounds``:
+    the largest gamma where the caller knows it on the host (the loops
+    of the reference and masked_loop backends then read nothing back).
     """
     backend = canonical_backend(backend)
     gamma = _cm.gamma_vector(gamma, z.shape[0], z.device)
@@ -133,9 +140,9 @@ def mix(z: torch.Tensor, V: torch.Tensor, gamma: Any, *,
                 "backend derive W, or precompute W from the masked V")
         V = masked_consensus_matrix(V, device_mask)
     if backend == "reference":
-        return _cm.consensus_mix_plain(z, V, gamma)
+        return _cm.consensus_mix_plain(z, V, gamma, rounds=rounds)
     if backend == "masked_loop":
-        return _mix_masked_loop(z, V, gamma)
+        return _mix_masked_loop(z, V, gamma, rounds)
     if backend == "pallas":
         return _mix_pallas(z, V, gamma)
     return _mix_fused_power(z, V, gamma, W=W)
@@ -182,11 +189,12 @@ class MixingPlan:
     cluster_size: int
     V: torch.Tensor                     # (N, s, s) float32
     gamma: torch.Tensor                 # (N,) int32
+    rounds: int                         # the largest gamma, on the host
     W: Optional[torch.Tensor] = None    # (N, s, s) float32, fused_power only
 
     @property
     def is_noop(self) -> bool:
-        return bool((self.gamma == 0).all())
+        return self.rounds == 0
 
     def _matrices(self, refresh: Optional[torch.Tensor]):
         """Resolve (V, W) given an optional per-call refresh matrix:
@@ -202,7 +210,8 @@ class MixingPlan:
               refresh: Optional[torch.Tensor] = None) -> torch.Tensor:
         """z: (N, s, M) -> mixed (N, s, M)."""
         V, W = self._matrices(refresh)
-        return mix(z, V, self.gamma, backend=self.backend, W=W)
+        return mix(z, V, self.gamma, backend=self.backend, W=W,
+                   rounds=self.rounds)
 
     def fused_w(self, refresh: Optional[torch.Tensor] = None
                 ) -> Optional[torch.Tensor]:
@@ -245,7 +254,8 @@ def build_mixing_plan(net, gamma: Any, backend: str = "fused_power",
                             device=device)
     return MixingPlan(backend=backend, num_clusters=N, cluster_size=s,
                       V=torch.as_tensor(V, device=device),
-                      gamma=torch.as_tensor(g, device=device), W=W)
+                      gamma=torch.as_tensor(g, device=device),
+                      rounds=int(g.max()) if g.size else 0, W=W)
 
 
 def refresh_matrices(plan: MixingPlan, V: Any, device_mask: Any = None,

@@ -47,14 +47,18 @@ def gamma_vector(gamma: Any, num_clusters: int,
 
 
 def consensus_mix_plain(z: torch.Tensor, V: torch.Tensor,
-                        gamma: Any) -> torch.Tensor:
+                        gamma: Any, *, rounds=None) -> torch.Tensor:
     """z: (N, s, M); V: (N, s, s); gamma: scalar or (N,) -> V_c^{gamma_c} z_c.
 
     Explicit per-round product with per-cluster masking, every round in
-    float32, rounded to z's dtype once at the end.
+    float32, rounded to z's dtype once at the end. ``rounds``: the
+    largest gamma, where the caller knows it on the host.
     """
     gamma = gamma_vector(gamma, z.shape[0], z.device)
-    max_gamma = int(gamma.max()) if gamma.numel() else 0
+    if rounds is not None:
+        max_gamma = rounds
+    else:
+        max_gamma = int(gamma.max()) if gamma.numel() else 0
     out = z.float()
     Vf = V.float()
     for r in range(max_gamma):

@@ -19,6 +19,11 @@ The kernel reads w and g once and writes the result once, so it is
 bound by device memory: ``3 * bytes(w) / 3.35 TB/s`` on an H100 SXM. The
 source note in ``csrc/fused_consensus_sgd.cu`` gives the design.
 
+On fake tensors (the dry run) it launches nothing and runs no plain
+arithmetic: it returns a fake result and charges the kernel's bytes (w
+and g read once, the result written once) and the 2 N s^2 M operations
+of the mix.
+
 ``fused_consensus_sgd.launches`` counts kernel launches (CPU calls do
 not count); a caller resets it to 0 before a run it wants to read.
 """
@@ -30,6 +35,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.runtime import charge, is_fake, nbytes
 
 MAX_CLUSTER_SIZE = 16          # kMaxClusterSize in csrc/fused_consensus_sgd.cu
 _MAX_CLUSTERS = 65_535         # the kernel's grid.y
@@ -105,6 +111,12 @@ def fused_consensus_sgd(w: torch.Tensor, g: torch.Tensor, W: torch.Tensor,
     s <= MAX_CLUSTER_SIZE and N <= 65,535.
     """
     _check(w, g, W)
+    if is_fake(w):
+        out = torch.empty_like(w)
+        N, s, M = w.shape
+        charge("fused_consensus_sgd", 2 * N * s * s * M,
+               nbytes(w, g, W, out))
+        return out
     if w.device.type == "cpu":
         return fused_consensus_sgd_plain(w, g, W, eta, weight_decay)
     if w.device.type != "cuda":

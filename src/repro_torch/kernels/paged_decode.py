@@ -27,6 +27,12 @@ kernel, so launches on one device run on one stream.
 Page ids in ``page_map`` must lie in ``[0, num_pages)``; the kernel reads
 them as given (the plain version raises on an index out of range).
 
+On fake tensors (the dry run) it launches nothing and runs no plain
+arithmetic: it returns a fake result and charges the kernel's bytes
+(each slot's whole page row of K and V, q, the page map, pos and the
+output, each once; the live positions are data the fake inputs do not
+hold) and the 4 B K G span hd operations of its two products.
+
 ``paged_decode.launches`` counts kernel launches (CPU calls do not
 count); a caller resets it to 0 before a run it wants to read.
 """
@@ -38,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.runtime import charge, is_fake, nbytes
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256             # kMaxHeadDim in csrc/paged_decode.cu
@@ -184,6 +191,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     G <= MAX_GROUP and B <= 65,535.
     """
     _check(q, k_pages, v_pages, page_map, pos)
+    if is_fake(q):
+        return _fake(q, k_pages, page_map, pos)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_map, pos,
                                   window=window)
@@ -211,6 +220,17 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(
             f"paged_decode kernel launch failed with CUDA error {err}")
     paged_decode.launches += 1
+    return out
+
+
+def _fake(q, k_pages, page_map, pos) -> torch.Tensor:
+    """The kernel's result on fake inputs, its work charged."""
+    B, K, G, hd = q.shape
+    span = page_map.shape[1] * k_pages.shape[1]
+    out = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
+    kv = 2 * B * span * K * hd * k_pages.element_size()
+    charge("paged_decode", 4 * B * K * G * span * hd,
+           kv + nbytes(q, page_map, pos, out))
     return out
 
 

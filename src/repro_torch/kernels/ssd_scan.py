@@ -37,6 +37,9 @@ forward shape (8 prompts, T 1024). The source note in
 only, as the TPU kernel (which has no VJP): the wrapper raises when a
 gradient is asked for.
 
+On fake tensors (the dry run) neither entry launches nor runs the plain
+scan: each returns fake results and charges :func:`ssd_work`.
+
 ``ssd_scan.launches`` counts wrapper calls that launch the kernels (two
 CUDA launches a call; CPU calls do not count), through either entry; a
 caller resets it to 0 before a run it wants to read.
@@ -49,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.runtime import charge, is_fake, nbytes
 
 P_TILE = 16                    # kPT in csrc/ssd_scan.cu: P is a multiple
 MAX_STATE = 128                # kMaxState in csrc/ssd_scan.cu
@@ -155,6 +159,31 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     heads = lambda t: t.reshape(G, hpg, T, *t.shape[2:]).transpose(1, 2)  # noqa: E731
     y, h = ssd_chunked(heads(x), heads(dt), heads(loga), B, C, chunk=chunk)
     return y.transpose(1, 2).reshape(BH, T, P), h.reshape(BH, *h.shape[2:])
+
+
+def ssd_work(groups: int, heads_per_group: int, T: int, P: int, S: int,
+             chunk: int) -> int:
+    """The operations the algorithm needs (the module note): the causal
+    half of G = C Bᵀ once per (group, chunk), per (row, chunk) the
+    causal half of M X and the carry, and per (row, chunk after the
+    first) the carried-state term."""
+    Q, nc, rows = chunk, -(-T // chunk), groups * heads_per_group
+    return (groups * nc * Q * (Q + 1) * S
+            + rows * (nc * (Q * (Q + 1) * P + 2 * Q * S * P)
+                      + (nc - 1) * 2 * Q * S * P))
+
+
+def _fake(x, dt, loga, B, C, hpg: int, chunk: int):
+    """Both entries' results on fake inputs, :func:`ssd_work` charged
+    with each input read and each output written once."""
+    groups, T, S = B.shape
+    P = x.shape[-1]
+    y = torch.empty_like(x)
+    hfin = torch.empty((groups * hpg, S, P), dtype=torch.float32,
+                       device=x.device)
+    charge("ssd_scan", ssd_work(groups, hpg, T, P, S, chunk),
+           nbytes(x, dt, loga, B, C, y, hfin))
+    return y, hfin
 
 
 def _library() -> ctypes.CDLL:
@@ -289,6 +318,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     """
     hpg = heads_per_group
     xs, ds = _check(x, dt, loga, B, C, chunk, hpg, heads=False)
+    if is_fake(x):
+        return _fake(x, dt, loga, B, C, hpg, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, loga, B, C, chunk=chunk,
                               heads_per_group=hpg)
@@ -308,9 +339,12 @@ def ssd_scan_heads(x: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     must be contiguous; the limits are :func:`ssd_scan`'s."""
     H = x.shape[2] if x.ndim == 4 else 1
     xs, ds = _check(x, dt, loga, B, C, chunk, H, heads=True)
-    if x.device.type == "cpu":
+    if is_fake(x):
+        y, hfin = _fake(x, dt, loga, B, C, H, chunk)
+    elif x.device.type == "cpu":
         return ssd_chunked(x, dt, loga, B, C, chunk=chunk)
-    y, hfin = _launch(x, dt, loga, B, C, H, chunk, xs, ds)
+    else:
+        y, hfin = _launch(x, dt, loga, B, C, H, chunk, xs, ds)
     return y, hfin.view(x.shape[0], H, *hfin.shape[1:])
 
 
@@ -319,4 +353,4 @@ ssd_scan.launches = 0
 
 __all__ = ["MAX_STATE", "P_TILE", "scratch_floats", "smem_bytes",
            "ssd_chunked", "ssd_scan", "ssd_scan_heads", "ssd_scan_plain",
-           "state_splits"]
+           "ssd_work", "state_splits"]

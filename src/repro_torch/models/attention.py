@@ -13,9 +13,12 @@ flash_threshold`` (2048) and runs the chunked online-softmax
 :func:`flash_attention` past it: plain torch over (q_chunk, k_chunk)
 tiles, with the reference's flash-style backward (a
 ``torch.autograd.Function`` that recomputes each tile's probabilities
-from the saved log-sum-exp, so the residuals are O(T)). The reference's
-pair-scheduled variant (``flash_attention_pairs``), which only its
-dry-run switches on, is not ported yet (ROADMAP.md Queue 1 item 8b).
+from the saved log-sum-exp, so the residuals are O(T)). Under
+:func:`pair_schedule` (the dry run's ``--pair-schedule``) the causal,
+sliding and prefix masks take :func:`flash_attention_pairs` instead:
+the same math over only the (q chunk, k chunk) pairs that hold a
+visible entry (about half the tiles of a causal sweep, window / T of a
+sliding one), forward and backward.
 
 The reference's sharding hints sit where its hints do: under a mesh
 (:mod:`repro_torch.dist`) q, k and v go over ``model`` by KV heads and
@@ -32,6 +35,8 @@ into the cache tensors it is given, in place, and returns them.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -41,6 +46,7 @@ from repro_torch.dist.sharding import (
     hint, hint_placements, is_dtensor, keep_dims, on_shards, shard_start,
     with_dims)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+from repro_torch.kernels.runtime import is_fake
 from repro_torch.models.common import (
     apply_rope, dense_init, rope, rope_angles, zeros_init)
 
@@ -178,12 +184,27 @@ def _flash_bwd(q, k, v, out, lse, dout, mode, window, prefix_len, q_offset,
     """The reference's ``_flash_bwd``: for each k chunk, every q chunk's
     probabilities recomputed from ``lse``; dK and dV summed over the q
     chunks, dQ over the k chunks, in the reference's order."""
+    delta, dq = _flash_bwd_start(q, out, dout)
+    dk, dv = _flash_bwd_columns(q, k, v, lse, dout, delta, dq, mode, window,
+                                prefix_len, q_offset, q_chunk, k_chunk,
+                                k_len)
+    return dq.to(q.dtype), dk, dv
+
+
+def _flash_bwd_start(q, out, dout):
+    """(delta (B, Tq, K, G), dQ's float32 accumulator)."""
+    delta = torch.sum(dout.float() * out.float(), dim=-1)
+    return delta, torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+
+
+def _flash_bwd_columns(q, k, v, lse, dout, delta, dq, mode, window,
+                       prefix_len, q_offset, q_chunk, k_chunk, k_len):
+    """The backward's loop over k chunks: dQ added into ``dq``; returns
+    dK and dV in k's and v's dtypes."""
     B, Tq, K, G, hd = q.shape
     Tk = k.shape[1]
     scale = hd ** -0.5
     dev = q.device
-    delta = torch.sum(dout.float() * out.float(), dim=-1)   # (B, Tq, K, G)
-    dq = torch.zeros((B, Tq, K, G, hd), dtype=torch.float32, device=dev)
     dks, dvs = [], []
     for k0 in range(0, Tk, k_chunk):
         ki = k[:, k0:k0 + k_chunk]
@@ -212,8 +233,30 @@ def _flash_bwd(q, k, v, out, lse, dout, mode, window, prefix_len, q_offset,
             dq[:, rows] += dq_blk.permute(0, 3, 1, 2, 4)
         dks.append(dki)
         dvs.append(dvi)
-    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+    return (torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(v.dtype))
+
+
+def _fake_flash_fwd(q, k, v, opts):
+    """The forward on fake tensors (the dry run): every q chunk's row of
+    tiles runs the same ops on the same shapes, so one row is traced and
+    counted for all of them; the result's shapes are returned."""
+    from repro_torch.kernels.runtime import repeated
+    with repeated(q.shape[1] // opts[4]):
+        _flash_fwd(q[:, :opts[4]], k, v, *opts)
+    return (torch.empty_like(q),
+            torch.empty(q.shape[:4], dtype=torch.float32, device=q.device))
+
+
+def _fake_flash_bwd(q, k, v, out, lse, dout, opts):
+    """The backward on fake tensors: its start once, one k chunk's
+    column traced and counted for every column, dQ's cast once."""
+    from repro_torch.kernels.runtime import repeated
+    delta, dq = _flash_bwd_start(q, out, dout)
+    with repeated(k.shape[1] // opts[5]):
+        _flash_bwd_columns(q, k[:, :opts[5]], v[:, :opts[5]], lse, dout,
+                           delta, dq, *opts)
+    return dq.to(q.dtype), torch.empty_like(k), torch.empty_like(v)
 
 
 class _Flash(torch.autograd.Function):
@@ -222,14 +265,21 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, opts):
-        out, lse = _flash_fwd(q, k, v, *opts)
+        if is_fake(q):
+            out, lse = _fake_flash_fwd(q, k, v, opts)
+        else:
+            out, lse = _flash_fwd(q, k, v, *opts)
         ctx.opts = opts
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return (*_flash_bwd(*ctx.saved_tensors, dout, *ctx.opts), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        if is_fake(q):
+            return (*_fake_flash_bwd(q, k, v, out, lse, dout, ctx.opts),
+                    None)
+        return (*_flash_bwd(q, k, v, out, lse, dout, *ctx.opts), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -247,6 +297,162 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   q_chunk, k_chunk, k_len))
 
 
+# ---------------------------------------------------------------------------
+# pair-scheduled flash attention: only the (q chunk, k chunk) pairs that
+# can hold unmasked entries are computed, instead of masking a full
+# rectangular sweep
+# ---------------------------------------------------------------------------
+
+def _block_pairs(nq, nk, q_chunk, k_chunk, mode, window, prefix_len,
+                 q_offset) -> list:
+    """The (iq, ik) chunk pairs with any visible entry, in order."""
+    pairs = []
+    for iq in range(nq):
+        q_lo = q_offset + iq * q_chunk
+        q_hi = q_lo + q_chunk - 1
+        for ik in range(nk):
+            k_lo = ik * k_chunk
+            k_hi = k_lo + k_chunk - 1
+            if mode == "full":
+                vis = True
+            elif mode == "causal":
+                vis = k_lo <= q_hi
+            elif mode == "sliding":
+                vis = (k_lo <= q_hi) and (k_hi > q_lo - window)
+            elif mode == "prefix":
+                vis = (k_lo <= q_hi) or (k_lo < (prefix_len or 0))
+            else:
+                raise ValueError(mode)
+            if vis:
+                pairs.append((iq, ik))
+    return pairs
+
+
+def _pairs_fwd(q, k, v, mode, window, prefix_len, q_offset, q_chunk,
+               k_chunk, k_len):
+    """:func:`_flash_fwd` over the visible pairs only: every q chunk's
+    accumulators are carried (O(Tq), float32) and normalized once at the
+    end."""
+    B, Tq, K, G, hd = q.shape
+    Tk = k.shape[1]
+    assert Tq % q_chunk == 0 and Tk % k_chunk == 0, (Tq, Tk)
+    nq, nk = Tq // q_chunk, Tk // k_chunk
+    scale = hd ** -0.5
+    dev = q.device
+    pl_ = prefix_len if prefix_len is not None else 0
+    acc = [torch.zeros((B, K, G, q_chunk, hd), dtype=torch.float32,
+                       device=dev) for _ in range(nq)]
+    m = [torch.full((B, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(nq)]
+    l = [torch.zeros((B, K, G, q_chunk), dtype=torch.float32, device=dev)
+         for _ in range(nq)]
+    for iq, ik in _block_pairs(nq, nk, q_chunk, k_chunk, mode, window,
+                               prefix_len, q_offset):
+        q0, k0 = iq * q_chunk, ik * k_chunk
+        q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
+        k_pos = k0 + torch.arange(k_chunk, device=dev)
+        s = _tile_scores(q[:, q0:q0 + q_chunk], k[:, k0:k0 + k_chunk],
+                         q_pos, k_pos, scale=scale, mode=mode,
+                         window=window, prefix_len=pl_, k_len=k_len)
+        m_new = torch.maximum(m[iq], s.amax(dim=-1))
+        alpha = torch.exp(m[iq] - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l[iq] = l[iq] * alpha + p.sum(dim=-1)
+        acc[iq] = acc[iq] * alpha[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", p, v[:, k0:k0 + k_chunk].float())
+        m[iq] = m_new
+    l_safe = [torch.clamp(x, min=1e-30) for x in l]
+    out = torch.cat([(a / ls[..., None]).to(q.dtype)
+                     for a, ls in zip(acc, l_safe)], dim=3)
+    lse = torch.cat([mi + torch.log(ls) for mi, ls in zip(m, l_safe)],
+                    dim=3)
+    return (out.permute(0, 3, 1, 2, 4).contiguous(),
+            lse.permute(0, 3, 1, 2).contiguous())
+
+
+def _pairs_bwd(q, k, v, out, lse, dout, mode, window, prefix_len,
+               q_offset, q_chunk, k_chunk, k_len):
+    """The reference's ``_flash_pairs_bwd``: each visible pair's
+    probabilities recomputed from ``lse``, its dQ, dK and dV tiles added
+    in pair order."""
+    B, Tq, K, G, hd = q.shape
+    Tk = k.shape[1]
+    nq, nk = Tq // q_chunk, Tk // k_chunk
+    scale = hd ** -0.5
+    dev = q.device
+    pl_ = prefix_len if prefix_len is not None else 0
+    delta = torch.sum(dout.float() * out.float(), dim=-1)   # (B, Tq, K, G)
+    dq = torch.zeros((B, Tq, K, G, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Tk, K, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for iq, ik in _block_pairs(nq, nk, q_chunk, k_chunk, mode, window,
+                               prefix_len, q_offset):
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        cols = slice(ik * k_chunk, (ik + 1) * k_chunk)
+        qi, ki, vi = q[:, rows], k[:, cols], v[:, cols].float()
+        q_pos = q_offset + rows.start + torch.arange(q_chunk, device=dev)
+        k_pos = cols.start + torch.arange(k_chunk, device=dev)
+        s = _tile_scores(qi, ki, q_pos, k_pos, scale=scale, mode=mode,
+                         window=window, prefix_len=pl_, k_len=k_len)
+        lse_a = lse[:, rows].permute(0, 2, 3, 1)          # (B, K, G, qc)
+        del_a = delta[:, rows].permute(0, 2, 3, 1)
+        p = torch.exp(s - lse_a[..., None])
+        do_b = dout[:, rows].permute(0, 2, 3, 1, 4).float()
+        dv[:, cols] += torch.einsum("bkgts,bkgth->bskh", p, do_b)
+        dp = torch.einsum("bkgth,bskh->bkgts", do_b, vi)
+        ds = p * (dp - del_a[..., None]) * scale
+        dq[:, rows] += torch.einsum("bkgts,bskh->bkgth", ds,
+                                    ki.float()).permute(0, 3, 1, 2, 4)
+        dk[:, cols] += torch.einsum("bkgts,bkgth->bskh", ds,
+                                    qi.permute(0, 2, 3, 1, 4).float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashPairs(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` of ``_flash_pairs``: the
+    backward runs over the forward's pair schedule."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = _pairs_fwd(q, k, v, *opts)
+        ctx.opts = opts
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_pairs_bwd(*ctx.saved_tensors, dout, *ctx.opts), None)
+
+
+def flash_attention_pairs(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, mode: str = "causal",
+                          window: int = 0, prefix_len=None,
+                          q_offset: int = 0, q_chunk: int = 512,
+                          k_chunk: int = 512, k_len=None) -> torch.Tensor:
+    """:func:`flash_attention`'s math over the triangular (causal,
+    prefix) or banded (sliding) schedule: only the (q chunk, k chunk)
+    pairs of :func:`_block_pairs` are computed, forward and backward."""
+    return _FlashPairs.apply(q, k, v, (mode, window, prefix_len, q_offset,
+                                       q_chunk, k_chunk, k_len))
+
+
+# the dry run's switch (``--pair-schedule``); :func:`pair_schedule` sets it
+PAIR_SCHEDULE = False
+
+
+@contextlib.contextmanager
+def pair_schedule(on: bool = True):
+    """Send the flash path's causal, sliding and prefix attention through
+    :func:`flash_attention_pairs` in this context."""
+    global PAIR_SCHEDULE
+    prev = PAIR_SCHEDULE
+    PAIR_SCHEDULE = on
+    try:
+        yield
+    finally:
+        PAIR_SCHEDULE = prev
+
+
 def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        mode: str = "causal", window: int = 0,
                        prefix_len=None,
@@ -256,21 +462,37 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_threshold``, else :func:`flash_attention` with the reference's
     chunks (``q_chunk = min(512, Tq)``, ``k_chunk = min(1024, Tk)``),
     q, k and v zero-padded to chunk multiples and the key padding masked
-    by ``k_len``."""
+    by ``k_len``. Under :func:`pair_schedule` the causal, sliding and
+    prefix masks take :func:`flash_attention_pairs` with ``k_chunk =
+    q_chunk``. On DTensors it runs on each rank's rows and KV heads
+    (the layout of :func:`heads_placements`): attention mixes neither."""
+    def where(_):
+        kp = heads_placements(k)
+        return (heads_placements(q), kp, kp), heads_placements(q)
+
+    return on_shards(lambda q_, k_, v_: _sequence_attention(
+        q_, k_, v_, mode=mode, window=window, prefix_len=prefix_len,
+        flash_threshold=flash_threshold), (q, k, v), where)
+
+
+def _sequence_attention(q, k, v, *, mode, window, prefix_len,
+                        flash_threshold):
     T, Tk = q.shape[1], k.shape[1]
     if max(T, Tk) <= flash_threshold:
         return simple_attention(q, k, v, mode=mode, window=window,
                                 prefix_len=prefix_len)
-    qc, kc = min(512, T), min(1024, Tk)
+    pair_mode = PAIR_SCHEDULE and mode in ("causal", "sliding", "prefix")
+    qc = min(512, T)
+    kc = qc if pair_mode else min(1024, Tk)
     pq, pk = (-T) % qc, (-Tk) % kc
     if pq:
         q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
     if pk:
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
-    out = flash_attention(q, k, v, mode=mode, window=window,
-                          prefix_len=prefix_len, q_chunk=qc, k_chunk=kc,
-                          k_len=Tk if pk else None)
+    fa = flash_attention_pairs if pair_mode else flash_attention
+    out = fa(q, k, v, mode=mode, window=window, prefix_len=prefix_len,
+             q_chunk=qc, k_chunk=kc, k_len=Tk if pk else None)
     return out[:, :T]
 
 
@@ -295,22 +517,65 @@ def _split_heads(t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return t.reshape(shape)
 
 
+def _products(n: int, x: torch.Tensor, *wb: torch.Tensor):
+    """``x @ w (+ b)`` for the ``n`` weights of ``wb`` (then their
+    biases, if any), in ``x``'s dtype."""
+    dt = x.dtype
+    outs = [x @ w.to(dt) for w in wb[:n]]
+    if len(wb) > n:
+        outs = [o + b.to(dt) for o, b in zip(outs, wb[n:])]
+    return tuple(outs) if n > 1 else outs[0]
+
+
+def _tp_matmul(x: torch.Tensor, ws: tuple, bs: tuple = (), *,
+               rows: bool = False):
+    """``x @ w (+ b)`` for each weight of ``ws`` (one layout). On
+    DTensors, tensor parallel over the mesh dims that shard the weights'
+    columns (q, k, v: each rank multiplies its rows of ``x`` by its
+    columns, the outputs sharded on their last dim) or, ``rows``, their
+    rows (the output projection: its slice of ``x``'s last dim by its
+    rows, the partial sums reduced once). The weights are gathered over
+    every other mesh dim, as the MLP's are, so the layout of the
+    products is the port's and not a strategy DTensor picks."""
+    w = ws[0]
+    if not is_dtensor(w):
+        return _products(len(ws), x, *ws, *bs)
+
+    def where(mesh):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        tp = [isinstance(pl, Shard) and pl.dim == (0 if rows else 1)
+              for pl in w.placements]
+        xp = x.placements if is_dtensor(x) else (Replicate(),) * mesh.ndim
+        keep = [pl if isinstance(pl, Shard) and pl.dim == 0 and not f
+                else Replicate() for f, pl in zip(tp, xp)]
+        last = Shard(x.ndim - 1)
+        x_in = tuple(last if f and rows else pl for f, pl in zip(tp, keep))
+        out = tuple((Partial() if rows else last) if f else pl
+                    for f, pl in zip(tp, keep))
+        w_in = tuple(Shard(0 if rows else 1) if f else Replicate()
+                     for f in tp)
+        b_in = tuple(Shard(0) if f else Replicate() for f in tp)
+        return ((x_in, *(w_in,) * len(ws), *(b_in,) * len(bs)),
+                out if len(ws) == 1 else (out,) * len(ws))
+
+    y = on_shards(functools.partial(_products, len(ws)), (x, *ws, *bs),
+                  where)
+    if rows:
+        y = y.redistribute(y.device_mesh, with_dims(y.placements, {}))
+    return y
+
+
 def _project_q(p, cfg, x: torch.Tensor) -> torch.Tensor:
     B, T, _ = x.shape
-    q = x @ p["wq"].to(x.dtype)
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
+    q = _tp_matmul(x, (p["wq"],), (p["bq"],) if "bq" in p else ())
     return _split_heads(q, (B, T, cfg.num_kv_heads, cfg.q_per_kv,
                             cfg.head_dim))
 
 
 def _project_kv(p, cfg, x: torch.Tensor):
     B, T, _ = x.shape
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
-    if "bk" in p:
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+    k, v = _tp_matmul(x, (p["wk"], p["wv"]),
+                      (p["bk"], p["bv"]) if "bk" in p else ())
     k = _split_heads(k, (B, T, cfg.num_kv_heads, cfg.head_dim))
     v = _split_heads(v, (B, T, cfg.num_kv_heads, cfg.head_dim))
     return k, v
@@ -355,7 +620,7 @@ def attention_block(p, cfg, x: torch.Tensor, *, mode: str = "causal",
                              prefix_len=prefix_len,
                              flash_threshold=flash_threshold)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype)
+    return _tp_matmul(out, (p["wo"],), rows=True)
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +767,7 @@ def paged_decode_attention(p, cfg, x: torch.Tensor, cache: dict,
     out = on_shards(attend, (q, k_new, v_new, cache["k"], cache["v"],
                              page_map, pos, flat, src), where)
     out = out.to(x.dtype).reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype), cache
+    return _tp_matmul(out, (p["wo"],), rows=True), cache
 
 
 def _paged_attend(q, k_new, v_new, k_pages, v_pages, page_map, pos, flat,
@@ -556,14 +821,18 @@ def decode_attention(p, cfg, x: torch.Tensor, cache: dict,
               **_seq_split(k))
 
     def where(_):
-        qp, kvp = heads_placements(q), heads_placements(k_new)
-        return (qp, kvp, kvp, k.placements, v.placements,
+        # q and the new row take the cache's layout: its slots and KV
+        # heads where it shards them, whole where it splits positions
+        from torch.distributed.tensor import Replicate, Shard
+        qp = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 2)
+                   else Replicate() for pl in k.placements)
+        return (qp, qp, qp, k.placements, v.placements,
                 keep_dims(qp, (0,))), qp
 
     out = on_shards(lambda *a: _ring_attend(*a, **kw),
                     (q, k_new, v_new, k, v, pos), where)
     out = out.to(x.dtype).reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype), cache
+    return _tp_matmul(out, (p["wo"],), rows=True), cache
 
 
 def _seq_split(k) -> dict:
@@ -577,26 +846,26 @@ def _seq_split(k) -> dict:
            if isinstance(pl, Shard) and pl.dim == 1]
     if not seq:
         return {}
-    assert len(seq) == 1, k.placements
     return dict(seq_lo=shard_start(k, 1),
-                group=k.device_mesh.get_group(seq[0]))
+                groups=tuple(k.device_mesh.get_group(md) for md in seq))
 
 
 def _ring_attend(q, k_new, v_new, k, v, pos, *, S: int, window: int,
-                 scale: float, seq_lo: int = 0, group=None
+                 scale: float, seq_lo: int = 0, groups=()
                  ) -> torch.Tensor:
     """The ring step on whole tensors, or on one rank's shards: each
     slot's new K/V row into its ring position, then its attention over
     the valid positions, -> (B, 1, K, G, hd) float32. ``S``: the whole
-    ring's length; with ``group``, k and v hold positions ``seq_lo`` ..
+    ring's length; with ``groups`` (the process groups of the mesh dims
+    that split the positions), k and v hold positions ``seq_lo`` ..
     ``seq_lo + k.shape[1] - 1``, the row is written by the rank that
     holds its position, and the softmax's max, sum and weighted values
-    are combined over ``group``."""
+    are combined over every group."""
     B, S_l = q.shape[0], k.shape[1]
     slot = pos % max(S, 1) if window > 0 else pos
     slot = torch.clamp(slot, max=S - 1).long()       # (B,)
     rows = torch.arange(B, device=q.device)
-    if group is None:
+    if not groups:
         k[rows, slot] = k_new[:, 0].to(k.dtype)
         v[rows, slot] = v_new[:, 0].to(v.dtype)
     else:
@@ -615,17 +884,20 @@ def _ring_attend(q, k_new, v_new, k, v, pos, *, S: int, window: int,
     else:
         valid = k_pos[None, :] <= pos[:, None]       # (B, S_l)
     s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
-    if group is None:
+    if not groups:
         w = torch.softmax(s, dim=-1)
         return torch.einsum("bkgts,bskh->btkgh", w, v.to(q.dtype).float())
     import torch.distributed as dist
     m = s.amax(dim=-1, keepdim=True)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
     e = torch.exp(s - m)
     den = e.sum(dim=-1, keepdim=True)
-    dist.all_reduce(den, group=group)
+    for g in groups:
+        dist.all_reduce(den, group=g)
     out = torch.einsum("bkgts,bskh->btkgh", e / den, v.to(q.dtype).float())
-    dist.all_reduce(out, group=group)
+    for g in groups:
+        dist.all_reduce(out, group=g)
     return out
 
 
@@ -643,12 +915,14 @@ def decode_cross_attention(p, cfg, x: torch.Tensor, cross_k: torch.Tensor,
     out = torch.einsum("bkgts,bskh->btkgh", w,
                        cross_v.to(q.dtype).float()).to(x.dtype)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype)
+    return _tp_matmul(out, (p["wo"],), rows=True)
 
 
 __all__ = ["NEG_INF", "attention_block", "cache_logical_axes",
            "decode_attention", "decode_cross_attention",
-           "flash_attention", "init_attention", "init_cache",
+           "flash_attention", "flash_attention_pairs", "init_attention",
+           "init_cache",
            "init_paged_cache", "last_writers", "page_flat_index",
            "paged_cache_logical_axes", "paged_decode_attention",
-           "rotary_angles", "sequence_attention", "simple_attention"]
+           "pair_schedule", "rotary_angles", "sequence_attention",
+           "simple_attention"]

@@ -222,9 +222,97 @@ def softmax_cross_entropy(logits: torch.Tensor,
     logsumexp runs in float32 over every column, padded vocab rows
     included."""
     logits = logits.float()
+    if vocab_sharded(logits):
+        return torch.mean(_vocab_parallel_nll(logits, labels))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+def vocab_sharded(t, dim: int = -1) -> bool:
+    """Is ``t`` a DTensor whose dim ``dim`` is sharded?"""
+    from repro_torch.dist.sharding import is_dtensor
+    if not is_dtensor(t):
+        return False
+    from torch.distributed.tensor import Shard
+    dim = dim % t.ndim
+    return any(isinstance(pl, Shard) and pl.dim == dim
+               for pl in t.placements)
+
+
+def vocab_parallel_embedding(table: torch.Tensor,
+                             tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)`` for a DTensor table whose vocab dim
+    (0) is sharded: each rank looks up the tokens in its rows, zeros
+    elsewhere, and the sum over the vocab's ranks is reduced at once.
+    The rows of ``tokens`` keep their sharding, and the backward stays
+    on each rank's rows of the table."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.dist.sharding import (
+        is_dtensor, on_shards, shard_start, with_dims)
+    mesh = table.device_mesh
+    v0 = shard_start(table, 0)
+
+    def look(tb, tk):
+        idx = tk.long() - v0
+        inside = (idx >= 0) & (idx < tb.shape[0])
+        x = F.embedding(idx.clamp(0, tb.shape[0] - 1), tb)
+        return x * inside[..., None].to(x.dtype)
+
+    def where(_):
+        tok = tokens.placements if is_dtensor(tokens) else \
+            (Replicate(),) * mesh.ndim
+        tok_in, out = [], []
+        for tpl, kpl in zip(table.placements, tok):
+            if isinstance(tpl, Shard) and tpl.dim == 0:
+                tok_in.append(Replicate())
+                out.append(Partial())
+            elif isinstance(kpl, Shard) and kpl.dim == 0:
+                tok_in.append(kpl)
+                out.append(kpl)
+            else:
+                tok_in.append(Replicate())
+                out.append(Replicate())
+        return (table.placements, tuple(tok_in)), tuple(out)
+
+    x = on_shards(look, (table, tokens), where)
+    return x.redistribute(mesh, with_dims(x.placements, {}))
+
+
+def _vocab_parallel_nll(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL of float32 DTensor logits whose vocab dim is
+    sharded, without gathering the vocab: the row maxima and the sums of
+    exponentials reduce over the vocab's ranks (``logsumexp``'s math,
+    the max held constant), and each label's logit comes from the rank
+    that holds its column, the others adding zero."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.dist.sharding import (
+        keep_dims, on_shards, shard_start, with_dims)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+
+    def reduced(t):
+        return t.redistribute(mesh, with_dims(t.placements, {}))
+
+    m = reduced(logits.detach().amax(dim=-1))
+    lse = torch.log(reduced(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    v0 = shard_start(logits, last)
+
+    def pick(lg, lb):
+        idx = lb.long() - v0
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(inside, g[..., 0], 0.0)
+
+    def where(_):
+        rows = keep_dims(logits.placements, tuple(range(last)))
+        part = tuple(Partial() if isinstance(pl, Shard) and pl.dim == last
+                     else pl for pl in logits.placements)
+        return (logits.placements, rows), part
+
+    ll = reduced(on_shards(pick, (logits, labels), where))
+    return lse - ll
 
 
 __all__ = [
@@ -232,6 +320,6 @@ __all__ = [
     "apply_rope", "norm_init", "ones_init", "params_from_jax", "rmsnorm",
     "rope", "rope_angles", "sinusoidal_positions",
     "softmax_cross_entropy",
-    "split_tree", "tree_from_items", "tree_items", "tree_leaves",
+    "split_tree", "vocab_parallel_embedding", "vocab_sharded", "tree_from_items", "tree_items", "tree_leaves",
     "tree_map", "zeros_init",
 ]

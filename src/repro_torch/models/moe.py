@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import hint, on_shards, with_dims
+from repro_torch.dist.sharding import (
+    hint, hint_placements, is_dtensor, keep_dims, on_shards, with_dims)
 from repro_torch.models.common import dense_init
 
 
@@ -94,6 +95,45 @@ def _route(logits: torch.Tensor, token_mask, c: int, dt):
                      (logits, token_mask), where)
 
 
+def _dispatch_combine(p, cfg, disp: torch.Tensor,
+                      xg: torch.Tensor) -> torch.Tensor:
+    """The one-hot dispatch into every expert's capacity buffer (n, E,
+    c, D), the experts' FFNs and the combine back to (n, s, D). On
+    DTensors each rank runs its groups' rows and its experts (``disp``'s
+    hinted layout: experts over ``model``) with those experts' weights
+    whole, and the experts' partial sums are reduced once."""
+    names = [k for k in ("w_gate", "w_up", "w_down") if k in p]
+
+    def moe(d, x, *ws):
+        w = dict(zip(names, (t.to(x.dtype) for t in ws)))
+        buf = torch.einsum("nsec,nsd->necd", d, x)
+        up = torch.einsum("necd,edf->necf", buf, w["w_up"])
+        if "w_gate" in w:
+            g = torch.einsum("necd,edf->necf", buf, w["w_gate"])
+            act = F.silu(g) if cfg.mlp_variant == "swiglu" \
+                else F.gelu(g, approximate="tanh")
+            h = act * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        out = torch.einsum("necf,efd->necd", h, w["w_down"])
+        return torch.einsum("nsec,necd->nsd", d, out)
+
+    def where(mesh):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        dp = hint_placements(mesh, disp.shape, ("pod", "data"), None,
+                             "model", None)
+        xp = keep_dims(dp, (0,))
+        experts = [isinstance(pl, Shard) and pl.dim == 2 for pl in dp]
+        wp = tuple(Shard(0) if e else Replicate() for e in experts)
+        out = tuple(Partial() if e else pl for e, pl in zip(experts, xp))
+        return (dp, xp, *(wp,) * len(names)), out
+
+    y = on_shards(moe, (disp, xg, *(p[n] for n in names)), where)
+    if is_dtensor(y):
+        y = y.redistribute(y.device_mesh, with_dims(y.placements, {}))
+    return y
+
+
 def apply_moe(p, cfg, x: torch.Tensor, capacity_factor: float | None = None,
               token_mask: torch.Tensor | None = None):
     """x: (B, T, D) -> (y (B, T, D), aux).
@@ -114,27 +154,18 @@ def apply_moe(p, cfg, x: torch.Tensor, capacity_factor: float | None = None,
         s = _group_size(B * T)
         n = B * T // s
     c = int(max(1, round(s * capacity_factor / E)))
+    if is_dtensor(x):
+        # the groups' rows over the replica axes where n divides them,
+        # the same rows of x (tokens are contiguous), else whole
+        x = x.redistribute(x.device_mesh, hint_placements(
+            x.device_mesh, (n, s, D), ("pod", "data"), None, None))
     xg = hint(x.reshape(n, s, D), ("pod", "data"), None, None)
 
     logits = (xg @ p["router"].to(dt)).float()                # (n, s, E)
     probs, gate, onehot_e, keep, disp = _route(logits, token_mask, c, dt)
     disp = hint(disp, ("pod", "data"), None, "model", None)
 
-    buf = torch.einsum("nsec,nsd->necd", disp, xg)            # (n, E, c, D)
-    buf = hint(buf, ("pod", "data"), "model", None, None)
-    up = torch.einsum("necd,edf->necf", buf, p["w_up"].to(dt))
-    up = hint(up, ("pod", "data"), "model", None, None)
-    if "w_gate" in p:
-        g = torch.einsum("necd,edf->necf", buf, p["w_gate"].to(dt))
-        g = hint(g, ("pod", "data"), "model", None, None)
-        act = F.silu(g) if cfg.mlp_variant == "swiglu" \
-            else F.gelu(g, approximate="tanh")
-        h = act * up
-    else:
-        h = F.gelu(up, approximate="tanh")
-    out = torch.einsum("necf,efd->necd", h, p["w_down"].to(dt))
-    out = hint(out, ("pod", "data"), "model", None, None)
-    y = torch.einsum("nsec,necd->nsd", disp, out)             # (n, s, D)
+    y = _dispatch_combine(p, cfg, disp, xg)                  # (n, s, D)
     y = hint(y, ("pod", "data"), None, None)
     y = y * gate[..., None].to(dt)
     if token_mask is not None:

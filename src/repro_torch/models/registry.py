@@ -1,5 +1,4 @@
-"""Model registry — the port of ``repro/models/registry.py`` (its
-``input_specs``, which only the dry run reads, is item 8b).
+"""Model registry — the port of ``repro/models/registry.py``.
 
 ``build_model(cfg)`` returns a :class:`ModelApi`. Parameters are nested
 dicts of tensors; ``abstract_params`` gives their shapes (on the
@@ -17,7 +16,8 @@ ssm kind's scans from a zero state through the ``ssd_scan`` kernel
 serve cache rules (``init_cache(mesh=)``, ``init_paged_cache(mesh=)``);
 ``cache_axes``, ``paged_cache_axes``, ``abstract_cache`` and
 ``abstract_paged_cache`` give their logical axes and ``meta`` shapes,
-as the reference's do.
+as the reference's do. ``input_specs`` gives the dry run's stand-ins
+for a step's inputs, as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import params_from_jax, tree_map
 from repro_torch.serving import engine as serve
@@ -95,7 +95,11 @@ class ModelApi:
                                      serve_window=serve_window,
                                      device="meta")
 
-    def cache_axes(self):
+    def cache_axes(self, long_context: bool = False):
+        """The ring cache's logical axes. ``long_context`` is the
+        reference's flag: the axes are the same, and the long-context
+        layout comes from the table they resolve under
+        (``launch.steps.CACHE_RULES_LONG``)."""
         return serve.cache_logical_axes_tree(self.cfg)
 
     # -- paged serving --------------------------------------------------
@@ -131,6 +135,41 @@ class ModelApi:
 
     def paged_cache_axes(self):
         return serve.paged_cache_logical_axes_tree(self.cfg)
+
+
+    # -- abstract inputs (dry run) ---------------------------------------
+    def input_specs(self, shape: InputShape, *, serve_window: int = 0,
+                    cache_dtype=torch.bfloat16) -> dict:
+        """``meta`` stand-ins for every input of the step that ``shape``
+        exercises (train/prefill: the token batch and the stub frontend
+        embeddings; decode: one token, the full cache and ``pos``), the
+        reference's shapes and dtypes."""
+        cfg = self.cfg
+        B, T = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+
+        def meta(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        def frontend(specs):
+            name = {"vlm": "patches", "encdec": "frames",
+                    "audio": "frames"}.get(cfg.kind)
+            if name:
+                specs[name] = meta((B, cfg.enc_seq_len, cfg.d_model),
+                                   torch.bfloat16)
+            return specs
+
+        t_text = T - (cfg.enc_seq_len if cfg.kind == "vlm" else 0)
+        if shape.phase == "train":
+            return {"batch": frontend({"tokens": meta((B, t_text), i32),
+                                       "labels": meta((B, t_text), i32)})}
+        if shape.phase == "prefill":
+            return {"batch": frontend({"tokens": meta((B, t_text), i32)})}
+        # decode: one token against a cache of length T
+        return {"token": meta((B, 1), i32),
+                "cache": self.abstract_cache(B, T, cache_dtype,
+                                             serve_window=serve_window),
+                "pos": meta((), i32)}
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:

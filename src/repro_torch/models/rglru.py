@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import hint
+from repro_torch.dist.sharding import hint, hint_placements, on_shards
 from repro_torch.models.common import Px, _normal, dense_init, zeros_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -100,13 +100,27 @@ def rglru_sequence(p, x: torch.Tensor, *, conv0=None, h0=None):
     ga = F.gelu(x @ p["w_gelu"].to(dt), approximate="tanh")
     pre = x @ p["w_rec"].to(dt)
     xb, _ = _causal_conv(pre, p["conv"], conv0)
+    # rows over the replica axes and channels over ``model``, as the
+    # decode step's: the sequence stays whole
+    xb = hint(xb, ("pod", "data"), None, "model")
     a, beta = _gates(p, xb)                          # (B, T, w) f32
     b = beta * xb.float()
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    hs = linear_scan(a, b)
+    hs = _scan_channels(a, b)
     y = (ga.float() * hs).to(dt)
     return y @ p["w_out"].to(dt), hs, pre
+
+
+def _scan_channels(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_scan`, on DTensors over each rank's rows and
+    channels: the recurrence mixes neither, and the sequence stays
+    whole."""
+    def where(mesh):
+        pl = hint_placements(mesh, a.shape, ("pod", "data"), None, "model")
+        return (pl, pl), pl
+
+    return on_shards(linear_scan, (a, b), where)
 
 
 def apply_rglru(p, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -104,7 +104,9 @@ def ssm_sequence(p, cfg, x: torch.Tensor, *, conv0=None, keep=None,
     dt_model = x.dtype
     cx0, cB0, cC0 = conv0 if conv0 is not None else (None, None, None)
 
-    proj = x @ p["w_in"].to(dt_model)
+    # whole over ``model`` before the split: DTensor splits a sharded
+    # dim by moving its shard onto the sequence
+    proj = hint(x @ p["w_in"].to(dt_model), ("pod", "data"), None, None)
     z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
     pre = (xs, Bm, Cm)
     xs = F.silu(_causal_conv(xs, p["conv_x"], cx0)[0])
@@ -191,7 +193,9 @@ def decode_ssm(p, cfg, x: torch.Tensor, cache: dict):
     d_in, H, P, S = _dims(cfg)
     dt_model = x.dtype
 
-    proj = x @ p["w_in"].to(dt_model)
+    # whole over ``model`` before the split: DTensor splits a sharded
+    # dim by moving its shard onto the sequence
+    proj = hint(x @ p["w_in"].to(dt_model), ("pod", "data"), None, None)
     z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
     xs, cx = _causal_conv(xs, p["conv_x"], cache["conv_x"])
     Bm, cB = _causal_conv(Bm, p["conv_B"], cache["conv_B"])

@@ -37,15 +37,16 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import hint, is_dtensor, with_dims
+from repro_torch.dist.sharding import hint
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import rglru as rgm
 from repro_torch.models import ssm as ssmm
 from repro_torch.models.common import (
-    Px, apply_norm, embed_init, norm_init, sinusoidal_positions,
-    softmax_cross_entropy, split_tree, tree_from_items, tree_items)
+    Px, vocab_sharded, apply_norm, embed_init, norm_init,
+    sinusoidal_positions, softmax_cross_entropy, split_tree,
+    tree_from_items, tree_items, vocab_parallel_embedding)
 
 # the kinds with an encoder and cross-attention decoder layers
 ENCODER_KINDS = ("encdec", "audio")
@@ -242,11 +243,11 @@ def init_model(gen, cfg, *, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(p, cfg, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    x = F.embedding(tokens.long(), p["embed"].to(dtype))
-    if is_dtensor(x):
-        # a vocab-sharded table leaves a pending masked sum: reduce it
-        # now, while its mask is live
-        x = x.redistribute(x.device_mesh, with_dims(x.placements, {}))
+    table = p["embed"].to(dtype)
+    if vocab_sharded(table, 0):
+        x = vocab_parallel_embedding(table, tokens)
+    else:
+        x = F.embedding(tokens.long(), table)
     if cfg.scale_embed:
         # the factor rounded to the compute dtype, as the reference's
         # jnp.asarray(sqrt(d), dtype); torch.full launches no host copy
@@ -380,7 +381,9 @@ def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
                                        enc_out=enc_out)
             if aux is not None:
                 auxs.append(aux)
-    x = apply_norm(cfg, p["ln_final"], x)
+    # the residual stream whole over ``model`` (a layer's last product
+    # leaves a pending sum) before the text positions are cut out
+    x = apply_norm(cfg, p["ln_final"], hint(x, ("pod", "data"), None, None))
     if prefix_len:
         x = x[:, prefix_len:]                # the text positions only
     aux_losses = {k: torch.stack([a[k] for a in auxs]).mean()

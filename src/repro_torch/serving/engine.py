@@ -331,6 +331,7 @@ def _prefill_attn_layer(lp, cfg, x: torch.Tensor, c: dict, *, mode: str,
     the MoE routing. A decoder layer with ``cross`` attends to
     ``enc_out`` and writes the encoder's keys and values into
     ``cross_k``/``cross_v``."""
+    x = hint(x, ("pod", "data"), None, None)    # as the model's layers
     B, T, _ = x.shape
     h = apply_norm(cfg, lp["ln_attn"], x)
     k, v = attn._project_kv(lp["attn"], cfg, h)
@@ -391,6 +392,7 @@ def _prefill_ssm_layer(lp, cfg, x: torch.Tensor, c: dict, *, lengths=None,
     """SSM layer forward that also writes its state slice ``c`` in place:
     the SSD state at each row's last valid token (dt = 0 on the
     right-padded rows freezes it) and the conv contexts there."""
+    x = hint(x, ("pod", "data"), None, None)    # as the model's layers
     B, T, _ = x.shape
     keep = None
     if lengths is not None:
@@ -411,6 +413,7 @@ def _prefill_rec_layer(lp, cfg, x: torch.Tensor, c: dict, *,
     """RG-LRU layer forward that also writes its state slice ``c`` in
     place: the state at each row's last valid token and the conv
     context there."""
+    x = hint(x, ("pod", "data"), None, None)    # as the model's layers
     B, T, _ = x.shape
     out, hs, pre = rgm.rglru_sequence(lp["rec"],
                                       apply_norm(cfg, lp["ln_rec"], x))
@@ -788,7 +791,8 @@ def prefill_chunk(p, cfg, cache: dict, tokens: torch.Tensor, start: int,
     pool = _kv_pool(cfg, cache)
     if pool is not None:
         ps = pool.shape[2]
-        row = np.asarray(torch.as_tensor(page_row).cpu(), dtype=np.int64)
+        row = np.asarray(page_row.cpu() if torch.is_tensor(page_row)
+                         else page_row, dtype=np.int64)
         P = row.shape[0]
         j = np.arange(C)
         tgt = start + j                              # absolute positions

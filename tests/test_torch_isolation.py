@@ -80,7 +80,10 @@ for new in ("repro_torch.core.distributed", "repro_torch.train.trainer",
             "repro_torch.control.controller", "repro_torch.obs",
             "repro_torch.obs.sink", "repro_torch.obs.trace",
             "repro_torch.obs.manifest", "repro_torch.obs.telemetry",
-            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"):
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.optim.optimizers", "repro_torch.launch.steps",
+            "repro_torch.launch.cost", "repro_torch.launch.analysis",
+            "repro_torch.launch.dryrun"):
     assert new in names, new
 from repro_torch.netsim import scenarios
 tr = TTHFTrainer(make_sim_model("svm", 784, 10), data,
@@ -156,6 +159,21 @@ ssm_params = ssm_model.init(torch.Generator().manual_seed(0), "cpu")
 for _ in range(2):        # two prefill chunks, then a decode step
     ssm_sched.step(ssm_params)
 assert ssm_sched.stats.decode_steps == 1 and ssm_sched.ssd_kernel is False
+# the dry run's imports sit inside its functions: run one, sizes only, on
+# a fake process group, and the optimizers and step builders it reaches
+from repro_torch.launch import dryrun
+rec = dryrun.run_serve_one("qwen1.5-0.5b", "pod", slots=16, max_prompt=32,
+                           max_total=64, paged=True, page_size=16,
+                           verbose=False)
+assert rec["status"] == "ok" and rec["flops_dev"] > 0
+rec = dryrun.run_serve_one("mamba2-370m", "pod", slots=16, max_prompt=64,
+                           max_total=128, verbose=False)
+assert rec["status"] == "ok"
+assert "ssd_scan" in rec["programs"]["admission"]["coll_breakdown"]["kernels"]
+rec = dryrun.run_one("qwen1.5-0.5b", "decode_32k", "pod", verbose=False)
+assert rec["status"] == "ok" and rec["flops_dev"] > 0
+import torch.distributed
+torch.distributed.destroy_process_group()
 print(len(names))
 """
 
