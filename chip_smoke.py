@@ -9,9 +9,11 @@ It drives the port's main paths — the paper's Algorithm 1 in
 simulation mode at the paper's Sec. IV size (125 devices in 25 clusters,
 the 784-7840-10 NN), the same under the four dynamic netsim scenarios,
 under the four fog presets and under the two control policies, TT-HF as
-the scale-mode sync strategy on the full-size qwen1.5-0.5b (24 layers, d
-1024, vocabulary 151,936), the same at 8 replicas under a fog tree and
-under the control plane (4 layers), on mamba2-370m (12 of its 48 Mamba-2
+the scale-mode sync strategy on qwen1.5-0.5b at full width (12 of its
+24 layers, d 1024, vocabulary 151,936; its train step at all 24 layers
+with and without activation rematerialization), the same at 8 replicas
+under a fog tree and under the control plane (2 layers), on mamba2-370m
+(4 of its 48 Mamba-2
 layers, d 1024, 32 SSD heads of 64, state 128), on recurrentgemma-9b
 at full width (5 of its 38 layers) and on llama4-maverick's MoE layout
 at full width (one {dense, moe} group, 8 experts), paged
@@ -111,7 +113,8 @@ caught):
              fallback exactly); the probe's time and card peak and τ's
              trajectory printed; the ``static`` policy for 40 steps equal
              to phase 3's run.
-4. scale   — ``ScaleTrainer`` on qwen1.5-0.5b at full size with the
+4. scale   — ``ScaleTrainer`` on qwen1.5-0.5b at full width and 12 of
+             its 24 layers (cut to pay for the remat recompute) with the
              scale CLI's defaults (4 replicas in clusters of 2, batch 16
              per replica, seq 128, τ 20, consensus every 5, Γ 2, f32)
              and ``fused_interval=True``: 2 intervals after a warm-up,
@@ -121,15 +124,17 @@ caught):
              ledger, the whole global model within atol 1e-5); and a
              reduced qwen run on the card against the same run on the
              CPU (loss rtol 1e-4).
-4b. scale-ssm — the same on mamba2-370m at full width and 12 of its
-             48 layers (cut to pay for phases 4d, 5b and 5c; the gradient
+4b. scale-ssm — the same on mamba2-370m at full width and 4 of its
+             48 layers (cut to pay for phases 4d, 5b, 5c and the remat
+             recompute; the gradient
              through the plain chunked scan: ``ssd_scan`` is forward
              only, and its counter must stay 0): 2 fused intervals after
              a warm-up (8 ``fused_consensus_sgd`` launches), the per-leaf
              step held to it, and a reduced mamba2 on the card against
              the CPU.
-4c. scale-forms — the same qwen1.5-0.5b at full width and 4 of its 24
-             layers (cut to pay for phases 4d, 5b and 5c) at 8 replicas
+4c. scale-forms — the same qwen1.5-0.5b at full width and 2 of its 24
+             layers (cut to pay for phases 4d, 5b, 5c and the remat
+             recompute) at 8 replicas
              in clusters of 2 (N 4; τ 20, consensus every 5, Γ 2, batch
              16 x 128), (a)
              under ``fog3`` and ``device_churn`` (the matrix form, each
@@ -271,7 +276,26 @@ caught):
              (1e-6); ``flash_attention_pairs`` against
              ``flash_attention`` at 4,096 tokens with qwen's heads,
              causal and sliding (outputs 2e-5 of max |out|, gradients
-             5e-5 relative L2), its blocks and both times.
+             5e-5 relative L2), its blocks and both times. The train
+             programs run with remat on (the default), so the pod
+             count holds each layer's recompute.
+7b''. remat — ``build_program``'s SGD step of the full qwen1.5-0.5b at
+             train_4k's 4,096 tokens, f32, on the (1, 1) mesh: 3 steps
+             at 2 sequences without remat and 3 with it from the same
+             parameters (losses and parameters bitwise, else 1e-6),
+             both ``max_memory_allocated`` peaks (the remat one lower)
+             and step times; one step at 4 sequences with remat, its
+             peak under 80 GB beside the dry run's counts of the program
+             with and without remat (the latter not launched: some 86
+             GB), and the dry run's FLOPs of the remat program equal to
+             the executed step's; ``--donation-check`` of the ``--sync
+             tthf-fused-interval`` program at dryrun's sizes (its
+             ``donation:`` line), both programs executed (the donated
+             result in its input's buffers, the undonated input
+             unchanged, the results bitwise; ``fused_consensus_sgd``
+             counted as ``remat``). Every ``[scale*]`` and ``[obs]``
+             phase runs the scale step with remat, its checks
+             unchanged.
 7b. vlm   — the serve CLI's direct mode (``launch/serve.py --arch
              paligemma-3b --batch 8 --prompt-len 1920 --gen 64
              --temperature 0``, ``main(argv)`` on the card, random f32
@@ -309,7 +333,7 @@ caught):
              ``torch_profile/`` holds the 32 ``consensus_mix`` kernel
              events); phase 4's fused qwen run with a trace dir (8
              ``fused_consensus_sgd`` launches, a finite ``grad_norm``),
-             checkpointed after interval 1 (7.4 GB, the free disk
+             checkpointed after interval 1 (5.0 GB, the free disk
              checked first; deleted after) and resumed in a fresh
              trainer for interval 2; phase 5's trace through the serve
              CLI with ``--trace-dir`` (the same tokens and stats, one
@@ -362,16 +386,23 @@ FCS_TEST_SHAPES = [(2, 4, 64), (4, 2, 937), (1, 8, 128)]
 SGD_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # the scale path: qwen1.5-0.5b's flat (R, P) buffer, R = 4 in clusters of 2
 QWEN_P = 464_118_784
+# [scale] and [obs] run qwen1.5-0.5b at full width and 12 of its 24 layers
+# (cut to pay for the remat recompute on every scale path, whose host
+# cost grew the two phases most, and for [remat], which runs the full 24
+# layers): a (4, 309,916,672) flat buffer
+SCALE_LAYERS = 12
+SCALE_P = 309_916_672
 # mamba2-370m's flat (R, P) buffer: 368,285,184 parameters, already a
 # multiple of 128 (no pad)
 MAMBA2_P = 368_285_184
 # [scale-forms] and [scale-ssm] run at a cut depth (full width, every
 # replica, program and W kept), to pay for the hybrid and flash phases
-# inside the time limit: qwen at 4 of its 24 layers, mamba2 at 12 of 48
-SCALE_FORMS_LAYERS = 4
-SCALE_FORMS_P = 207_115_264
-SCALE_SSM_LAYERS = 12
-SCALE_SSM_P = 130_803_840
+# inside the time limit, and for the remat recompute: qwen at 2 of its 24
+# layers, mamba2 at 4 of 48
+SCALE_FORMS_LAYERS = 2
+SCALE_FORMS_P = 181_414_912
+SCALE_SSM_LAYERS = 4
+SCALE_SSM_P = 78_030_208
 # the hybrid kind: the full recurrentgemma-9b (38 layers, 9,396,301,824
 # parameters) through the serve CLI's paged trace, prompts of 768-3,072
 # tokens across the 2,048-token window
@@ -1586,6 +1617,14 @@ def scale_run(c, sc, fused: bool, intervals: int, name: str, *,
         led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
 
 
+def scale_model_config():
+    """The [scale] and [obs] model: qwen1.5-0.5b at full width and
+    ``SCALE_LAYERS`` of its 24 layers."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("qwen1.5-0.5b"),
+                               num_layers=SCALE_LAYERS)
+
+
 def phase_scale(profile: bool = False) -> tuple:
     """ScaleTrainer on the full-size qwen1.5-0.5b: the fused interval
     (the main path, through fused_consensus_sgd), the per-leaf step held
@@ -1594,7 +1633,6 @@ def phase_scale(profile: bool = False) -> tuple:
     global model (on the host), ledger and wall with the warm-up's
     losses and global model (the bare runs ``[obs]`` is held to)."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.core.distributed import TTHFScaleConfig
     from repro_torch.kernels.consensus_mix import consensus_mix
     from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
@@ -1602,7 +1640,7 @@ def phase_scale(profile: bool = False) -> tuple:
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
 
-    cfg = get_arch("qwen1.5-0.5b")
+    cfg = scale_model_config()
     scale = scale_cli_config()
     tokens_per_interval = scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
@@ -1615,7 +1653,8 @@ def phase_scale(profile: bool = False) -> tuple:
 
     # warm-up: allocator, cuBLAS handles, the kernel's first load
     tr, losses, wall, _ = run(True, 1, "warmup")
-    log(f"[scale] warm-up qwen1.5-0.5b fused interval: 1 interval in "
+    log(f"[scale] warm-up qwen1.5-0.5b ({SCALE_LAYERS} layers) fused "
+        f"interval: 1 interval in "
         f"{wall:.3f} s, loss {losses}")
     # kept on the host for [obs]: a bare 1-interval run to hold another to
     warm = {"losses": losses, "row0": tr.params[0].cpu()}
@@ -1631,7 +1670,7 @@ def phase_scale(profile: bool = False) -> tuple:
     launches = {"fused_consensus_sgd": fused_consensus_sgd.launches,
                 "fused_sgd": fused_sgd.launches}
     peak = torch.cuda.max_memory_allocated()
-    assert tr._spec.total == QWEN_P, tr._spec.total
+    assert tr._spec.total == SCALE_P, tr._spec.total
     assert np.isfinite(losses).all() and len(losses) == 2, losses
     # one launch per consensus block: 4 blocks per interval
     assert launches["fused_consensus_sgd"] == 8, launches
@@ -1643,7 +1682,8 @@ def phase_scale(profile: bool = False) -> tuple:
     spec = tr._spec
     bare = {"losses": losses, "row0": g_fused.cpu(), "ledger": ledger,
             "wall": wall, "warm": warm}
-    log(f"[scale] qwen1.5-0.5b fused interval: 2 intervals in {wall:.3f} s "
+    log(f"[scale] qwen1.5-0.5b ({SCALE_LAYERS} layers) fused interval: 2 "
+        f"intervals in {wall:.3f} s "
         f"= {2 / wall:.4f} intervals/s, {2 * tokens_per_interval / wall:.1f} "
         f"tokens/s, loss {losses}, ledger {ledger}, fused_consensus_sgd "
         f"launches {launches['fused_consensus_sgd']}, fused_sgd launches "
@@ -1669,10 +1709,11 @@ def phase_scale(profile: bool = False) -> tuple:
         tree_leaves(tr2._global_params()),
         spec.leaf_views(g_fused)))
     assert diff <= 1e-5, diff
-    log(f"[scale] qwen1.5-0.5b per-leaf step: 2 intervals in {wall2:.3f} s "
+    log(f"[scale] qwen1.5-0.5b ({SCALE_LAYERS} layers) per-leaf step: 2 "
+        f"intervals in {wall2:.3f} s "
         f"= {2 / wall2:.4f} intervals/s, loss {losses2} (rtol 1e-4 vs the "
         f"fused run), same ledger, max_memory_allocated {peak2} B, global "
-        f"model ({QWEN_P} parameters) max |diff| {diff:.3e} (atol 1e-5)")
+        f"model ({SCALE_P} parameters) max |diff| {diff:.3e} (atol 1e-5)")
     del tr2, g_fused
     torch.cuda.empty_cache()
     if profile:
@@ -3639,7 +3680,9 @@ def hold_flash_loss(tag: str, model, params, batch: dict,
     """The loss, the logits and every parameter's gradient of ``batch``
     through ``flash_attention`` against the materialized attention, as
     [flash] holds them: loss rtol 1e-4, logits 1e-4 of max |logit|,
-    gradient relative L2 1e-4."""
+    gradient relative L2 1e-4. ``flash_calls`` is the forward's; the
+    loss remats (the default), so the backward's recompute calls each
+    layer's attention once more."""
     import torch
     from repro_torch.models.common import softmax_cross_entropy, tree_leaves
 
@@ -3666,7 +3709,7 @@ def hold_flash_loss(tag: str, model, params, batch: dict,
         lf, loss_f, gf, wall_f, peak_f = loss_and_grads()
     finally:
         unpatch()
-    assert flashes[0] == flash_calls, flashes
+    assert flashes[0] == 2 * flash_calls, flashes
     with materialized(1 << 30):
         lm, loss_m, gm, wall_m, peak_m = loss_and_grads()
     logit_err = float((lf - lm).abs().max()) / float(lm.abs().max())
@@ -3679,7 +3722,8 @@ def hold_flash_loss(tag: str, model, params, batch: dict,
     positions = batch["tokens"].shape[1] + (
         batch["patches"].shape[1] if "patches" in batch else 0)
     log(f"[{tag}] loss and gradient of one {positions}-position sequence: "
-        f"through flash_attention ({flashes[0]} calls) {loss_f:.6f} vs "
+        f"through flash_attention ({flashes[0]} calls: forward and remat "
+        f"recompute) {loss_f:.6f} vs "
         f"materialized {loss_m:.6f}; logits max |diff| {logit_err:.3e} of "
         f"max |logit| (tol {LOGIT_TOL}); gradient relative L2 "
         f"{grad_rel:.3e} (tol 1e-4); forward + backward {wall_f:.3f} s, "
@@ -3869,9 +3913,10 @@ def probe_ms(probe, params, iters: int = 5) -> float:
 def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
     """The observability sink and checkpoints on three main paths, each
     held to its bare run: the sim NN (paper size, Γ 2, 40 steps) with a
-    trace dir and then with the profiler; the full qwen1.5-0.5b scale
-    path (4 replicas, fused, 2 intervals) instrumented, checkpointed after
-    interval 1 and resumed in a fresh trainer; the serve CLI's paged trace
+    trace dir and then with the profiler; the qwen1.5-0.5b scale path of
+    ``[scale]`` (4 replicas, fused, 2 intervals) instrumented,
+    checkpointed after interval 1 and resumed in a fresh trainer; the
+    serve CLI's paged trace
     with a trace dir. Returns each kernel's launches on these runs."""
     import shutil
 
@@ -4009,7 +4054,7 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
     torch.cuda.empty_cache()
 
     # ---- scale: bare 1 interval, instrumented 2 with a checkpoint ------
-    cfg = get_arch("qwen1.5-0.5b")
+    cfg = scale_model_config()
     scale = scale_cli_config()
     tokens = scale.tau * scale.replicas * SCALE_BATCH * 128
     w0 = build_model(cfg).init(
@@ -4096,7 +4141,7 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
         f"probe), "
         f"losses {scale_bare['losses']}, grad_norm {ev['grad_norm']:.6f}, "
         f"divergence probe {scale_probe_ms:.3f} ms a round over the (4, "
-        f"{QWEN_P}) buffer; fused_consensus_sgd launches "
+        f"{SCALE_P}) buffer; fused_consensus_sgd launches "
         f"{launches['fused_consensus_sgd']}")
 
     # the checkpoint into a fresh trainer, then interval 2
@@ -4125,6 +4170,7 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
     # ---- serve: the CLI's paged trace, bare then with a trace dir --------
     # (the serve path's rate spreads widely from run to run: the bare
     # run just before is the one to read the instrumented run's against)
+    cfg = get_arch("qwen1.5-0.5b")
     model = build_model(cfg)
     _, _, arrivals, wall_b = serve_cli.run_scheduler_trace(
         serve_cli.parse_args(SERVE_ARGV), cfg, model, torch.device("cuda"))
@@ -4198,18 +4244,40 @@ print(json.dumps({"flops": rec.flops, "counts": rec.coll_counts}))
 """
 
 
+def host_process(*argv) -> tuple:
+    """``python argv`` on the host's CPU beside the card's work, the
+    repository's sources on its path: (start time, the process)."""
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    return time.time(), subprocess.Popen(
+        [sys.executable, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def host_result(name: str, started: tuple, timeout: int = 900) -> tuple:
+    """The JSON last line of a :func:`host_process` and its wall."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, (name, err[-3000:])
+    return json.loads(out.strip().splitlines()[-1]), time.time() - t0
+
+
+def host_stop(*started) -> None:
+    """Kill the :func:`host_process` runs still going (a phase that
+    failed before it read them)."""
+    for _, proc in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def dryrun_start() -> dict:
     """Both sizes-only dry runs as a user runs them, and the rank-share
     check, in subprocesses on the host's CPU (they place nothing on the
     card)."""
-    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
     runs = {name: ["-m", "repro_torch.launch.dryrun", *argv]
             for name, argv in DRYRUN_ARGV.items()}
     runs["rank share"] = ["-c", RANK_SHARE]
-    return {name: (time.time(), subprocess.Popen(
-        [sys.executable, *argv], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env))
-        for name, argv in runs.items()}
+    return {name: host_process(*argv) for name, argv in runs.items()}
 
 
 def dryrun_finish(procs: dict) -> dict:
@@ -4219,11 +4287,8 @@ def dryrun_finish(procs: dict) -> dict:
     rank's share (2,179,072 FLOPs, not the global 557,842,432) with two
     all-gathers."""
     recs = {}
-    for name, (t0, proc) in procs.items():
-        out, err = proc.communicate(timeout=900)
-        wall = time.time() - t0
-        assert proc.returncode == 0, (name, err[-3000:])
-        rec = json.loads(out.strip().splitlines()[-1])
+    for name, started in procs.items():
+        rec, wall = host_result(name, started)
         if name == "rank share":
             assert rec["flops"] == 2 * 4 * 896 * 304, rec
             assert rec["counts"]["all-gather"] == 2, rec
@@ -4236,12 +4301,17 @@ def dryrun_finish(procs: dict) -> dict:
         assert rec["flops_dev"] > 0, rec
         if name == "train":
             # every projection tensor parallel: 6 N D over the ranks plus
-            # the rectangular flash sweep (7 products of 2 T^2 H hd)
+            # the rectangular flash sweep (7 products of 2 T^2 H hd) and
+            # the remat recompute
+            from repro_torch.configs import get_arch
             T, B, L, hd = 4096, 256, 24, 16 * 64
-            want = rec["model_flops"] + 7 * 2 * T * T * hd * L * B / 256
+            want = rec["model_flops"] + (
+                7 * 2 * T * T * hd * L * B
+                + recompute_flops(get_arch("qwen1.5-0.5b"), B, T)) / 256
             assert 0.99 < rec["flops_dev"] / want < 1.01, (rec, want)
             log(f"[dryrun] train flops/rank {rec['flops_dev']:.4e} = "
-                f"{rec['flops_dev'] / want:.5f} x (6 N D + flash) / 256")
+                f"{rec['flops_dev'] / want:.5f} x (6 N D + flash + "
+                f"recompute) / 256")
         log(f"[dryrun] {name} (sizes only, 256 fake ranks, {wall:.1f} s "
             f"wall): flops/rank {rec['flops_dev']:.4e}, bytes/rank "
             f"{rec['bytes_dev']:.4e}, collective bytes/rank "
@@ -4304,7 +4374,18 @@ def phase_dryrun() -> int:
     backward + update (1e-6), and the dry run's count of the program on
     this mesh to the executed step's (FLOPs equal); (c)
     ``flash_attention_pairs`` against ``flash_attention`` at 4,096
-    tokens with qwen's heads, causal and sliding."""
+    tokens with qwen's heads, causal and sliding. The train programs
+    remat (the default)."""
+    procs = dryrun_start()
+    try:
+        return dryrun_card(procs)
+    finally:
+        host_stop(*procs.values())
+
+
+def dryrun_card(procs: dict) -> int:
+    """[dryrun]'s work on the card while ``procs`` trace on the host,
+    then their records."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -4318,7 +4399,6 @@ def phase_dryrun() -> int:
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import make_optimizer
 
-    procs = dryrun_start()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -4516,6 +4596,254 @@ def pairs_check() -> None:
             f"{ms_f:.2f} ms")
 
 
+# [remat]: qwen1.5-0.5b's train_4k step (4,096 tokens) at full width
+# through build_program on the (1, 1) mesh: with and without remat at 2
+# sequences, with remat alone at 4 (without it the step needs some 86 GB)
+REMAT_T = 4096
+REMAT_B, REMAT_B_WIDE = 2, 4
+REMAT_STEPS = 3
+REMAT_PEAK_LIMIT = 80e9
+# the dry run's counts of the 4-sequence step, with remat and without, on
+# a (1, 1) mesh of a fake process group on the host's CPU (nothing on the
+# card), traced while the card runs [remat]'s steps
+REMAT_TRACE = """
+import json, sys, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import InputShape, get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import build_program
+from repro_torch.models import build_model
+B, T, lr = int(sys.argv[1]), int(sys.argv[2]), float(sys.argv[3])
+dryrun.start_fake_world(1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+model = build_model(get_arch("qwen1.5-0.5b"))
+out = {}
+for remat in (True, False):
+    fn, args = build_program(model, InputShape("train_4k", T, B, "train"),
+                             mesh, dtype=torch.float32, lr=lr,
+                             accum_steps=1, remat=remat)
+    rec, _, secs = dryrun.trace(fn, args)
+    out["remat" if remat else "plain"] = {
+        "flops": rec.flops, "peak": rec.peak_bytes, "secs": secs}
+print(json.dumps(out))
+"""
+
+
+def recompute_flops(cfg, B: int, T: int) -> float:
+    """The FLOPs remat adds to a dense model's train step of B x T
+    tokens: each layer's forward again in the backward, but for its last
+    projection (the MLP's down product, which the backward does not
+    need), the flash sweep's two products of 2 T^2 H hd included."""
+    q = cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    per_layer = (2 * B * T * cfg.d_model * (2 * q + 2 * kv + 2 * cfg.d_ff)
+                 + 2 * 2 * T * T * q * B)
+    return per_layer * cfg.num_layers
+
+
+def phase_remat() -> int:
+    """``build_program``'s SGD step of the full qwen1.5-0.5b at train_4k's
+    4,096 tokens, f32, on a (1, 1) NCCL mesh: (a) at 2 sequences,
+    ``REMAT_STEPS`` steps without remat and as many with it from the
+    same parameters: losses and parameters bitwise equal (else within
+    1e-6), both peaks (``max_memory_allocated``) and step times printed,
+    the remat peak lower; (b) at 4 sequences, with remat only: its peak
+    under 80 GB, beside the dry run's count of the same program with and
+    without remat (the no-remat step is not launched: it does not fit),
+    and the dry run's FLOPs of the remat program equal to the executed
+    step's (the counts traced on the host's CPU beside the card's work,
+    ``REMAT_TRACE``; the step run once, under the counter); (c)
+    ``--donation-check`` of the ``--sync
+    tthf-fused-interval`` program at ``[dryrun]``'s ``SYNC_*`` sizes,
+    counted, and both programs executed: the donated one's result in
+    its input's buffers, the undonated one's input unchanged and its
+    result bitwise the donated one's. Returns (c)'s
+    ``fused_consensus_sgd`` launches (the counter reset just before)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.dist.sharding import local
+    from repro_torch.launch.analysis import model_flops_for
+    from repro_torch.launch.cost import measure
+    from repro_torch.launch.steps import build_program
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    counting = host_process("-c", REMAT_TRACE, str(REMAT_B_WIDE),
+                            str(REMAT_T), str(DRYRUN_LR))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_arch("qwen1.5-0.5b")
+        model = build_model(cfg)
+        idx = torch.zeros((), dtype=torch.int32, device="cuda")
+
+        def batches(B, n):
+            rng = np.random.default_rng(0)
+            return [{k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, size=(B, REMAT_T)).astype(
+                    np.int32)).cuda() for k in ("tokens", "labels")}
+                for _ in range(n)]
+
+        def program(B, remat):
+            return build_program(model, InputShape("train_4k", REMAT_T, B,
+                                                   "train"), mesh,
+                                 dtype=torch.float32, lr=DRYRUN_LR,
+                                 accum_steps=1, remat=remat)
+
+        def run(B, remat, steps):
+            """-> (params, losses, step seconds, peak bytes)."""
+            torch.cuda.empty_cache()
+            params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                                "cuda")
+            fn, _ = program(B, remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for b in batches(B, steps):
+                t = time.time()
+                _, _, loss = fn(params, (), b, idx)
+                losses.append(float(local(loss)))
+                torch.cuda.synchronize()
+                times.append(time.time() - t)
+            return params, losses, times, torch.cuda.max_memory_allocated()
+
+        # (a) 2 sequences, without and with remat
+        p_off, l_off, t_off, peak_off = run(REMAT_B, False, REMAT_STEPS)
+        p_off = [v.clone() for v in tree_leaves(p_off)]
+        p_on, l_on, t_on, peak_on = run(REMAT_B, True, REMAT_STEPS)
+        with torch.no_grad():
+            bitwise = l_on == l_off and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(p_on), p_off))
+            dp = max(float((a - b).abs().max())
+                     for a, b in zip(tree_leaves(p_on), p_off))
+        dl = max(abs(a - b) / abs(b) for a, b in zip(l_on, l_off))
+        assert bitwise or (dl <= 1e-6 and dp <= 1e-6), (l_on, l_off, dp)
+        assert peak_on < peak_off, (peak_on, peak_off)
+        log(f"[remat] {card_line()}: {REMAT_STEPS} SGD steps of "
+            f"build_program's step, {REMAT_B} x {REMAT_T} tokens, f32, (1, 1)"
+            f" mesh: losses without remat {l_off}, with {l_on}; "
+            f"{'bitwise equal' if bitwise else 'not bitwise'} (loss max rel "
+            f"diff {dl:.2e}, params max |diff| {dp:.2e}); peak "
+            f"{peak_off / 1e9:.3f} GB without, {peak_on / 1e9:.3f} GB with; "
+            f"step {min(t_off):.3f} s without, {min(t_on):.3f} s with "
+            f"({min(t_on) / min(t_off):.3f}x)")
+        del p_off, p_on
+        # (b) 4 sequences, remat only, one step under the counter; the
+        # dry run's counts of the program with and without remat
+        torch.cuda.empty_cache()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        fn, _ = program(REMAT_B_WIDE, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, loss), ran = measure(fn, params, (),
+                                    batches(REMAT_B_WIDE, 1)[0], idx)
+        torch.cuda.synchronize()
+        peak_w = torch.cuda.max_memory_allocated()
+        assert peak_w < REMAT_PEAK_LIMIT, peak_w
+        dry, t_trace = host_result("remat counts", counting)
+        assert dry["remat"]["flops"] == ran.flops > 0, (dry, ran.flops)
+        shape = InputShape("train_4k", REMAT_T, REMAT_B_WIDE, "train")
+        hd = cfg.num_heads * cfg.head_dim
+        want = (model_flops_for(cfg, shape) + 7 * 2 * REMAT_T ** 2 * hd
+                * cfg.num_layers * REMAT_B_WIDE
+                + recompute_flops(cfg, REMAT_B_WIDE, REMAT_T))
+        log(f"[remat] {REMAT_B_WIDE} x {REMAT_T} tokens with remat: loss "
+            f"{float(local(loss)):.6f}, peak {peak_w / 1e9:.3f} GB (limit "
+            f"{REMAT_PEAK_LIMIT / 1e9:.0f}); the dry run's count (host CPU, "
+            f"{t_trace:.1f} s beside the card): peak "
+            f"{dry['remat']['peak'] / 1e9:.3f} GB with remat, "
+            f"{dry['plain']['peak'] / 1e9:.3f} GB without (not launched); "
+            f"flops {dry['remat']['flops']:.6e} (dry) = {ran.flops:.6e} "
+            f"(executed) = {dry['remat']['flops'] / want:.5f} x (6 N D + "
+            f"flash + recompute), "
+            f"{dry['remat']['flops'] / dry['plain']['flops']:.4f} x the "
+            f"no-remat count {dry['plain']['flops']:.6e}")
+        del params
+        torch.cuda.empty_cache()
+        launches = donation_run(mesh)
+    finally:
+        dist.destroy_process_group()
+        host_stop(counting)
+    return launches
+
+
+def donation_run(mesh) -> int:
+    """``--donation-check`` of the ``--sync tthf-fused-interval`` program
+    on the (1, 1) mesh at ``[dryrun]``'s ``SYNC_*`` sizes: the dry run's
+    counts of the donated and the undonated program (its ``donation:``
+    line; the undonated keeps more live bytes), then both executed from
+    the same parameters: the donated result in the input's buffers, the
+    undonated input unchanged, the results bitwise equal; the live bytes
+    each call leaves (``memory_allocated`` after less before) and its
+    peak above the inputs. Returns the ``fused_consensus_sgd``
+    launches of the two runs."""
+    import torch
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.core.distributed import FlatParamSpec, stack_replicas
+    from repro_torch.dist.sharding import local
+    from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    model = build_model(dataclasses.replace(get_arch("qwen1.5-0.5b"),
+                                            num_layers=SYNC_LAYERS))
+    shape = InputShape("train_4k", SYNC_T, SYNC_B, "train")
+    programs = {donate: dryrun.build_tthf_program(
+        model, shape, mesh, "tthf", "fused", tau=SYNC_TAU,
+        consensus_every=SYNC_CE, fused_interval=True, replicas=SYNC_R,
+        donate=donate) for donate in (True, False)}
+    counted = {donate: dryrun.trace(*programs[donate])[0]
+               for donate in programs}
+    don = dryrun.donation_record(counted[True], counted[False])
+    assert don["param_hbm_ratio"] > 1, don
+    log(f"[remat] --donation-check, --sync tthf-fused-interval "
+        f"({SYNC_LAYERS} layers, {SYNC_R} replicas, {SYNC_B} x {SYNC_T})"
+        f":{dryrun.donation_line(don)}")
+    args = programs[True][1]
+    flat = FlatParamSpec.for_model(model).flatten(stack_replicas(
+        model.init(torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        SYNC_R))
+    tb = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 32_000, size=tuple(args[1]["tokens"].shape)).astype(
+            np.int32)).cuda()
+    batch = {"tokens": tb, "labels": tb.roll(1, dims=-1)}
+    picks = torch.zeros(tuple(args[2].shape), dtype=torch.int32,
+                        device="cuda")
+    fused_consensus_sgd.launches = 0
+    outs, notes = {}, []
+    for donate in (True, False):
+        given = flat.clone()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = programs[donate][0](given, batch, picks, picks[0])
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - before
+        peak = torch.cuda.max_memory_allocated() - before
+        rec = counted[donate]
+        if donate:
+            assert local(out).data_ptr() == local(given).data_ptr()
+        else:
+            assert torch.equal(local(given), flat)
+        outs[donate] = local(out).clone()
+        notes.append(f"{'donated' if donate else 'undonated'}: keeps "
+                     f"{kept / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB above "
+                     f"its inputs (counted "
+                     f"{(rec.peak_bytes - rec.arg_bytes) / 1e9:.3f})")
+        del out, given
+    launches = fused_consensus_sgd.launches
+    assert launches == 2 * (SYNC_TAU // SYNC_CE), launches
+    assert torch.equal(outs[True], outs[False])
+    log(f"[remat] both programs on the card: results bitwise equal; "
+        f"{'; '.join(notes)}; fused_consensus_sgd launches {launches}")
+    return launches
+
+
 def profile_main_path(fn, label: str) -> None:
     """Device time by kernel and the device's busy share over one run
     of a main path (torch.profiler, CUDA activity only: recording every
@@ -4565,6 +4893,7 @@ PARTIAL_PHASES = {
     "paged-kernel": phase_paged_kernel,
     "slice-fog": phase_slice_fog,
     "slice-control": phase_slice_control,
+    "scale": phase_scale,
     "scale-forms": phase_scale_forms,
     "scale-ssm": phase_scale_ssm,
     "scale-hybrid": phase_scale_hybrid,
@@ -4577,6 +4906,7 @@ PARTIAL_PHASES = {
     "obs": phase_obs,
     "serve-mesh": phase_serve_mesh,
     "dryrun": phase_dryrun,
+    "remat": phase_remat,
 }
 
 
@@ -4665,6 +4995,9 @@ def main() -> int:
     # on the card (its --sync tthf-fused-interval program through
     # fused_consensus_sgd)
     by_path["fused_consensus_sgd"]["dryrun"] = timed("dryrun", phase_dryrun)
+    # the train step with and without remat; the donated and undonated
+    # --sync tthf-fused-interval programs (fused_consensus_sgd)
+    by_path["fused_consensus_sgd"]["remat"] = timed("remat", phase_remat)
     # the vlm and audio kinds in direct serving (no kernel on their path)
     timed("vlm", phase_vlm, profile=profile)
     timed("audio", phase_audio, profile=profile)

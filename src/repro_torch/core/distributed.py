@@ -20,7 +20,10 @@ replicated leaves (per-leaf step) or into the flat ``(R, P)`` buffer
 JAX arrays are immutable; the port updates in place where that saves
 memory: a step updates the parameters it is given (the microsteps write
 into them) and returns the interval's result, which the caller keeps.
-The reference's buffer donation has no other counterpart.
+That is the port's counterpart of the reference's buffer donation; a
+caller that must keep its tensors (the trainer's ``donate=False``)
+hands the step a copy. Every replica's loss rematerializes its layers'
+activations in the backward (``remat=True``, the reference's default).
 
 Ported: all three aggregation forms of the reference, for ``sync`` in
 {tthf, star, local} and every mixing backend (``consensus_mode`` fused |
@@ -450,14 +453,17 @@ class MeshRows:
         return loss / self.ranks
 
 
-def _loss_and_grads(model: ModelApi, params: dict, mb: dict, dtype):
+def _loss_and_grads(model: ModelApi, params: dict, mb: dict, dtype,
+                    remat: bool = True):
     """One replica's loss and its gradients (the reference's
     ``value_and_grad``), in leaf order. The parameters are taken as new
-    autograd leaves that share storage with ``params``."""
+    autograd leaves that share storage with ``params``; ``remat``: the
+    model's layers rematerialized in the backward."""
     items = tree_items(params)
     leaves = [v.detach().requires_grad_(True) for _, v in items]
     loss = model.loss(tree_from_items(
-        (p, l) for (p, _), l in zip(items, leaves)), mb, dtype=dtype)
+        (p, l) for (p, _), l in zip(items, leaves)), mb, dtype=dtype,
+        remat=remat)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), grads
 
@@ -491,7 +497,7 @@ def _check(scale: TTHFScaleConfig, sync: str, hierarchy) -> None:
 
 
 def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
-                         dtype=torch.bfloat16,
+                         dtype=torch.bfloat16, remat: bool = True,
                          sync: str = "tthf", refreshable: bool = False,
                          hierarchy=None, fused_interval: bool = False,
                          fused_kernel: Optional[bool] = None,
@@ -520,8 +526,10 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
       HierarchyEvent`, whatever the depth. A flat hierarchy is TT-HF and
       takes the picks form.
     ``dtype`` is the compute dtype of the model, ``param_dtype`` the flat
-    buffer's. The step's matrices live on ``device`` (the CUDA device by
-    default, see :func:`~repro_torch.kernels.runtime.resolve_device`).
+    buffer's. ``remat``: every replica's loss rematerializes its layers'
+    activations in the backward (the numbers are the same either way).
+    The step's matrices live on ``device`` (the CUDA device by default,
+    see :func:`~repro_torch.kernels.runtime.resolve_device`).
 
     ``fused_interval=True``: each consensus block's last SGD update fuses
     with the ``W = V^Gamma`` mix (fused_power backend) in
@@ -581,7 +589,8 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         return _make_fused_interval_step(
             model, scale, net=net, plan=plan, n_blocks=n_blocks,
             block_batches=block_batches, aggregate=aggregate,
-            mix_active=mix_active, dtype=dtype, fused_kernel=fused_kernel,
+            mix_active=mix_active, dtype=dtype, remat=remat,
+            fused_kernel=fused_kernel,
             param_dtype=param_dtype, device=device, rows=rows, sync=sync)
 
     def microstep(params, mb, lr):
@@ -592,7 +601,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         for r in range(R):
             loss, grads = _loss_and_grads(
                 model, tree_map(lambda l: l[r], params), _replica(mb, r),
-                dtype)
+                dtype, remat)
             with torch.no_grad():
                 for w, g in zip(tree_leaves(params), grads):
                     w[r].sub_(lr.to(w.dtype) * g.to(w.dtype))
@@ -625,7 +634,7 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
 def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
                               net: Network, plan: Optional[MixingPlan],
                               n_blocks: int, block_batches, aggregate,
-                              mix_active, dtype,
+                              mix_active, dtype, remat: bool,
                               fused_kernel: Optional[bool], param_dtype,
                               device: torch.device, rows, sync: str):
     """The ``fused_interval=True`` build — see ``make_tthf_train_step``.
@@ -643,7 +652,7 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
 
     def replica_grads(flat, mb, r):
         return _loss_and_grads(model, spec.unflatten_one(flat[r]),
-                               _replica(mb, r), dtype)
+                               _replica(mb, r), dtype, remat)
 
     def sgd(flat, mb, lr):
         """One microstep on the flat buffer, in place."""

@@ -284,6 +284,27 @@ def drop_hint_axes(axes: Iterable[str]):
         _local.dropped = prev
 
 
+def hint_scope():
+    """This thread's hint state (the ambient mesh and the dropped axes)
+    as a context that sets it on whichever thread enters it. A
+    rematerialized layer runs again in the backward, which on a CUDA
+    device runs on autograd's own thread, where neither is set. Only
+    the state is set: the ambient ``implicit_replication`` is a process
+    flag, still on while the backward runs."""
+    mesh, dropped = ambient_mesh(), _dropped_axes()
+
+    @contextmanager
+    def scope():
+        prev = ambient_mesh(), _dropped_axes()
+        _local.mesh, _local.dropped = mesh, dropped
+        try:
+            yield
+        finally:
+            _local.mesh, _local.dropped = prev
+
+    return scope
+
+
 def resolve_hint_spec(dim_specs: tuple, mesh,
                       shape: Optional[tuple] = None) -> Optional[tuple]:
     """The spec a :func:`hint` would pin on ``mesh`` right now (honoring
@@ -538,7 +559,7 @@ def distribute_like(x: torch.Tensor, mesh, place) -> torch.Tensor:
 
 __all__ = ["AbstractMesh", "ShardingRules", "ambient_mesh",
            "distribute_like", "drop_hint_axes", "from_shard", "hint",
-           "hint_placements", "is_dtensor",
+           "hint_placements", "hint_scope", "is_dtensor",
            "keep_dims", "local", "mesh_axis_names", "mesh_axis_sizes",
            "on_shards", "placements", "read_rows", "resolve_hint_spec",
            "shard_start", "use_mesh", "with_dims",

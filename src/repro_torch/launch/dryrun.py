@@ -28,10 +28,20 @@ prefill) charge their bound formulas on fake tensors. ``lower_s`` is the
 time to build the program and its fake inputs, ``compile_s`` the traced
 run's: the reference's keys, with no compile behind them.
 
+The train step and the TT-HF interval run with ``remat`` on, as the
+reference's programs do: the count holds each layer's recompute in the
+backward, and the peak the storages live without the activations the
+recompute rebuilds.
+
 ``--sync`` traces one TT-HF interval instead of the train step
-(:func:`build_tthf_program`). ``--donation-check`` raises
-``ValueError``: the port's step donates no buffer, its microsteps update
-the replicas in place (the record's ``alias_bytes``).
+(:func:`build_tthf_program`). The interval program is donated: its
+result lands in the parameter input's buffers (the record's
+``alias_bytes``), the counterpart of XLA's buffer donation.
+``--donation-check`` traces it a second time undonated (a copy of the
+parameter input takes the in-place microsteps, the result comes back in
+new buffers) and reports the live argument-plus-output bytes of both
+(``rec["donation"]``, the reference's keys, and its ``donation:``
+line).
 
 Each combo can run in a fresh interpreter (``--subprocess``). Importing
 this module starts nothing; ``main`` owns the process group.
@@ -54,13 +64,6 @@ SKIPS: dict[tuple[str, str], str] = {
 
 # pods per multi-pod mesh variant (absent key = single pod)
 MESH_PODS = {"multipod": 2, "multipod10k": 40}
-
-DONATION = ("--donation-check compares the reference's donated interval "
-            "step with an undonated one; the port's step has no buffer "
-            "donation: its microsteps update the replicas in place, and "
-            "the record's alias_bytes already show what comes back in "
-            "place")
-
 
 def start_fake_world(ranks: int) -> None:
     """A ``"fake"`` process group of ``ranks`` ranks, this process rank
@@ -140,7 +143,8 @@ def trace(fn, args):
 def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
                        tau: int = 8, consensus_every: int = 4,
                        gamma: int = 2, fused_interval: bool = False,
-                       replicas: int = 0):
+                       replicas: int = 0, donate: bool = True,
+                       remat: bool = True):
     """One TT-HF interval (Algorithm 1 lines 4-15) on ``mesh``:
     replicas = the (pod, data) slices, clusters = data blocks (multi-pod:
     a cluster is a pod); a giant model (over 5e10 params) takes a pod a
@@ -150,6 +154,11 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
     cluster, a multiple of the replica axes' ranks, in place of one
     replica a rank (a one-card mesh holds several). Returns ``(fn,
     abstract_args)`` for ``fn(params, batch, picks, step_idx)``.
+    ``donate``: the interval's result is written into ``params``'
+    buffers and returned in them (XLA's donated arguments); False: the
+    microsteps run on a copy, ``params`` are left as they were and the
+    result comes back in new buffers. ``remat``: every replica's layers
+    rematerialized in the backward.
 
     Each rank runs its own replicas' microsteps on its rows, whole over
     ``model`` (no tensor parallelism inside a replica yet: the ``model``
@@ -161,8 +170,10 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
     from repro_torch.core.distributed import (
         MeshRows, TTHFScaleConfig, make_tthf_train_step, tthf_shardings)
     from repro_torch.dist.sharding import (
-        mesh_axis_names, mesh_axis_sizes, on_shards, placements)
-    from repro_torch.launch.steps import Program, param_dtype_for, replicated
+        is_dtensor, local, mesh_axis_names, mesh_axis_sizes, on_shards,
+        placements)
+    from repro_torch.launch.steps import (
+        Program, param_dtype_for, place, replicated)
     from repro_torch.models.common import tree_from_items, tree_items
 
     sizes = mesh_axis_sizes(mesh)
@@ -186,7 +197,7 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
     axes = tuple(a for a in (("pod",) if pod_granular else ("pod", "data"))
                  if a in mesh_axis_names(mesh))
     step, net = make_tthf_train_step(
-        model, scale, dtype=torch.bfloat16, sync=sync,
+        model, scale, dtype=torch.bfloat16, remat=remat, sync=sync,
         fused_interval=fused_interval, param_dtype=pdt,
         device=mesh.device_type, rows=MeshRows(mesh, axes))
     p_abs, p_sh, b_sh = tthf_shardings(model, scale, mesh, param_dtype=pdt)
@@ -211,7 +222,8 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
         n = len(leaves)
 
         def interval(*a):
-            p = tree_from_items(zip(paths, a[:n])) if paths else a[0]
+            mine = a[:n] if donate else [t.clone() for t in a[:n]]
+            p = tree_from_items(zip(paths, mine)) if paths else mine[0]
             out, loss = step(p, {"tokens": a[n], "labels": a[n + 1]},
                              a[n + 2], step_idx)
             outs = ([v for _, v in tree_items(out)] if paths is not None
@@ -223,7 +235,15 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
                         lambda _: ((rows,) * n + (batch_rows, batch_rows,
                                                   repl),
                                    (rows,) * n + (repl,)))
-        new = tree_from_items(zip(paths, res[:n])) if paths else res[0]
+        outs = list(res[:n])
+        if donate:
+            # the result into the parameter input's own buffers
+            for src, dst in zip(outs, leaves):
+                if is_dtensor(dst):
+                    src = place(src, tuple(dst.placements), mesh)
+                local(dst).copy_(local(src))
+            outs = leaves
+        new = tree_from_items(zip(paths, outs)) if paths else outs[0]
         return new, res[n]
 
     fn = Program(run, mesh, (p_sh, {"tokens": b_sh, "labels": b_sh}, repl,
@@ -232,6 +252,28 @@ def build_tthf_program(model, shape, mesh, sync: str, consensus_mode: str,
                         device="meta")
     return fn, (p_abs, {"tokens": tb, "labels": tb}, picks,
                 torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def donation_record(donated, undonated) -> dict:
+    """The reference's ``rec["donation"]`` from the counts of a donated
+    and an undonated program: the live argument-plus-output bytes of
+    each (an output that aliases an argument counted once) and their
+    ratio."""
+    def live(r):
+        return r.arg_bytes + r.out_bytes - r.alias_bytes
+    live_d, live_u = live(donated), live(undonated)
+    return {"alias_bytes": donated.alias_bytes,
+            "live_arg_out_donated": live_d,
+            "live_arg_out_undonated": live_u,
+            "param_hbm_ratio": live_u / max(live_d, 1.0)}
+
+
+def donation_line(don: dict) -> str:
+    """The reference's ``donation:`` line of a :func:`donation_record`."""
+    return (f"  donation: alias {don['alias_bytes']:.3e}B  live arg+out "
+            f"{don['live_arg_out_undonated']:.3e}B -> "
+            f"{don['live_arg_out_donated']:.3e}B "
+            f"({don['param_hbm_ratio']:.2f}x)")
 
 
 def run_one(arch: str, shape_name: str, mesh_name: str,
@@ -248,8 +290,6 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
     from repro_torch.launch.steps import TRAIN_RULES, build_program
     from repro_torch.models import build_model
 
-    if donation_check:
-        raise ValueError(DONATION)
     cfg = get_arch(arch)
     shape = shape or get_shape(shape_name)
     if (arch, shape_name) in SKIPS:
@@ -263,15 +303,19 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
         rules_override = TRAIN_RULES.with_overrides(
             embed_fsdp=None, expert_ffn=("pod", "data"))
     t0 = time.time()
+
+    def interval(donate: bool):
+        return build_tthf_program(
+            model, shape, mesh, "tthf" if sync.startswith("tthf") else sync,
+            "fused" if "fused" in sync else "rounds", tau=tau,
+            consensus_every=consensus_every,
+            fused_interval=sync == "tthf-fused-interval", donate=donate)
+
     if sync == "baseline":
         fn, args = build_program(model, shape, mesh,
                                  rules_override=rules_override)
     else:
-        fn, args = build_tthf_program(
-            model, shape, mesh, "tthf" if sync.startswith("tthf") else sync,
-            "fused" if "fused" in sync else "rounds", tau=tau,
-            consensus_every=consensus_every,
-            fused_interval=sync == "tthf-fused-interval")
+        fn, args = interval(donate=True)
     rec, t_place, t_run = trace(fn, args)
     t_lower = time.time() - t0 - t_run
     if verbose:
@@ -289,6 +333,13 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
     out.update(status="ok", lower_s=t_lower, compile_s=t_run,
                arg_bytes=rec.arg_bytes, out_bytes=rec.out_bytes,
                temp_bytes=rec.temp_bytes, alias_bytes=rec.alias_bytes)
+    if donation_check and sync != "baseline":
+        # the donation contract's memory claim, counted: the same
+        # interval undonated beside the donated one
+        undonated, _, _ = trace(*interval(donate=False))
+        out["donation"] = donation_record(rec, undonated)
+        if verbose:
+            print(donation_line(out["donation"]))
     if verbose:
         print(f"  roofline: compute {roof.compute_s * 1e3:.2f}ms "
               f"memory {roof.memory_s * 1e3:.2f}ms "
@@ -406,8 +457,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tau", type=int, default=8)
     ap.add_argument("--consensus-every", type=int, default=4)
     ap.add_argument("--donation-check", action="store_true",
-                    help="the reference's donated-vs-undonated interval "
-                         "step: refused (the port's step has no donation)")
+                    help="also trace the interval step WITHOUT donation "
+                         "(--sync) and record the live-param bytes of "
+                         "both")
     ap.add_argument("--pair-schedule", action="store_true",
                     help="the pair-scheduled flash attention (skips "
                          "fully-masked blocks)")
@@ -430,8 +482,6 @@ def main(argv=None) -> int:
     ap.add_argument("--page-size", type=int, default=64,
                     help="serve mode: tokens per cache page (--paged)")
     args = ap.parse_args(argv)
-    if args.donation_check:
-        ap.error(DONATION)
 
     from repro_torch.models import attention
     attention.PAIR_SCHEDULE = args.pair_schedule
@@ -471,6 +521,7 @@ def main(argv=None) -> int:
                        str(args.consensus_every)]
                 cmd += ["--pair-schedule"] if args.pair_schedule else []
                 cmd += ["--moe-ep"] if args.moe_ep else []
+                cmd += ["--donation-check"] if args.donation_check else []
                 out = subprocess.run(cmd, capture_output=True, text=True,
                                      timeout=3600)
                 try:
@@ -484,6 +535,7 @@ def main(argv=None) -> int:
                     rec = run_one(arch, shape, args.mesh, verbose=verbose,
                                   sync=args.sync, tau=args.tau,
                                   consensus_every=args.consensus_every,
+                                  donation_check=args.donation_check,
                                   moe_ep=args.moe_ep)
                     rec["sync"] = args.sync
                     rec["tau"] = args.tau

@@ -15,8 +15,10 @@ inputs' global shapes and dtypes; host values (a slot, a chunk's start)
 are Python values, as the port's engine takes them on the host. The dry
 run (:mod:`repro_torch.launch.dryrun`) turns them into fake DTensors.
 
-What the reference has and the port does not: ``remat`` (the port keeps
-every activation for the backward) and buffer donation. Instead the
+The train programs take the reference's ``remat`` (default True): the
+loss rematerializes its layers' activations in the backward, so a step
+keeps each layer's input and not its activations, and runs each layer's
+forward once more. Buffer donation has a counterpart of its own: the
 train step updates the parameters it is given in place (as
 ``ScaleTrainer`` does) and returns them; the optimizer state is
 returned anew. The serving programs write the caches they are given in
@@ -180,10 +182,10 @@ def _microbatch(x: torch.Tensor, accum_steps: int, i: int) -> torch.Tensor:
 
 def make_train_step(model: ModelApi, *, optimizer: str = "sgd",
                     lr: float = 1e-3, dtype=torch.bfloat16,
-                    accum_steps: int = 1):
+                    remat: bool = True, accum_steps: int = 1):
     """Returns ``(step, opt)``: ``step(params, opt_state, batch,
     step_idx) -> (params, opt_state, loss)``, the params updated in
-    place.
+    place; ``remat``: the loss's layers rematerialized in the backward.
 
     ``accum_steps > 1`` runs the microbatches one after another and sums
     their gradients: in float32 for float32 params, in the param dtype
@@ -199,13 +201,14 @@ def make_train_step(model: ModelApi, *, optimizer: str = "sgd",
 
     def step(params, opt_state, batch, step_idx):
         if accum_steps == 1:
-            loss, grads = _loss_and_grads(model, params, batch, dtype)
+            loss, grads = _loss_and_grads(model, params, batch, dtype,
+                                          remat)
         else:
             acc, loss = None, None
             for i in range(accum_steps):
                 mb = {k: _microbatch(v, accum_steps, i)
                       for k, v in batch.items()}
-                l, g = _loss_and_grads(model, params, mb, dtype)
+                l, g = _loss_and_grads(model, params, mb, dtype, remat)
                 if acc is None:
                     acc = [torch.zeros_like(
                         p, dtype=torch.float32 if p.dtype == torch.float32
@@ -304,10 +307,11 @@ def build_program(model: ModelApi, shape: InputShape, mesh, *,
                   lr: float = 1e-3,
                   rules_override: Optional[ShardingRules] = None,
                   cache_rules_override: Optional[ShardingRules] = None,
-                  accum_steps: Optional[int] = None):
+                  accum_steps: Optional[int] = None, remat: bool = True):
     """The step of one (arch, shape) on ``mesh`` and its abstract inputs:
     ``(fn, abstract_args)``. ``accum_steps`` defaults to
-    :func:`accum_steps_for`'s choice."""
+    :func:`accum_steps_for`'s choice; ``remat`` (train): the layers
+    rematerialized in the backward."""
     cfg = model.cfg
     pdt = param_dtype_for(cfg)
     params_abs, axes = model.abstract_params(dtype=pdt)
@@ -321,7 +325,8 @@ def build_program(model: ModelApi, shape: InputShape, mesh, *,
         if accum_steps is None:
             accum_steps = accum_steps_for(cfg, shape, mesh)
         step, opt = make_train_step(model, optimizer=optimizer, lr=lr,
-                                    dtype=dtype, accum_steps=accum_steps)
+                                    dtype=dtype, remat=remat,
+                                    accum_steps=accum_steps)
         opt_abs = opt.init(params_abs)
         o_sh = opt_state_shardings(optimizer, p_sh, mesh)
         b_sh = batch_shardings(specs["batch"], mesh, rules)

@@ -9,7 +9,10 @@ chunked prefill are token-only: the vlm, encdec and audio kinds raise);
 they update the caches they are given in place. ``batch`` passes
 through as given, so the vlm kind's ``patches`` and the encdec and
 audio kinds' ``frames`` reach the forward, the loss and the prefill.
-The moe kind's ``loss`` adds the routers' aux losses. ``use_kernel``
+The moe kind's ``loss`` adds the routers' aux losses. ``remat`` on
+``loss`` and ``forward`` (default True, as in the reference)
+rematerializes the layers' activations in the backward (see
+:mod:`repro_torch.models.transformer`). ``use_kernel``
 on ``forward``, ``loss``, ``prefill`` and ``prefill_chunk`` sends the
 ssm kind's scans from a zero state through the ``ssd_scan`` kernel
 (forward only). Under a mesh the caches are DTensors placed by the
@@ -53,14 +56,15 @@ class ModelApi:
         return tree_map(lambda x: x.to(dtype), params), axes
 
     # -- training -------------------------------------------------------
-    def loss(self, params, batch, *, dtype=torch.bfloat16, use_kernel=False):
+    def loss(self, params, batch, *, dtype=torch.bfloat16, remat=True,
+             use_kernel=False):
         return tfm.loss_fn(params, self.cfg, batch, dtype=dtype,
-                           use_kernel=use_kernel)
+                           remat=remat, use_kernel=use_kernel)
 
-    def forward(self, params, batch, *, dtype=torch.bfloat16,
+    def forward(self, params, batch, *, dtype=torch.bfloat16, remat=True,
                 use_kernel=False):
         return tfm.forward(params, self.cfg, batch, dtype=dtype,
-                           use_kernel=use_kernel)
+                           remat=remat, use_kernel=use_kernel)
 
     # -- serving --------------------------------------------------------
     def prefill(self, params, batch, *, dtype=torch.bfloat16,

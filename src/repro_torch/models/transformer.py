@@ -20,9 +20,18 @@ encoder, ``enc_layers`` and ``enc_ln_final``, over the stub frontend's
 frames (``batch["frames"]``) plus sinusoidal positions, and a decoder,
 ``layers``, whose layers carry a cross-attention block (``ln_cross``,
 ``cross``) over the encoder's output.
-:func:`walk_layers` walks any of these layouts in the model's order. The
-reference's activation rematerialization (``remat``) changes no number;
-the port leaves it out and takes no ``remat`` option.
+:func:`walk_layers` walks any of these layouts in the model's order.
+
+``remat`` (default True, as in the reference) rematerializes the
+activations of the training forward: each unit of the reference's
+scanned layer body (a layer of ``layers``, ``enc_layers`` and ``tail``;
+a whole group of ``groups``) runs under a non-reentrant
+``torch.utils.checkpoint``, which keeps the unit's input for the
+backward and runs the unit again there to rebuild the rest, up to the
+last tensor the backward needs (the final projection is not run
+again). The numbers are the same either way; what moves is the peak
+memory of a training step and its FLOPs. Where no gradient is being
+recorded (serving, evaluation) the units run as they are.
 
 The moe kind's forward returns the load-balance and router z-losses,
 each the mean over the MoE layers, and :func:`loss_fn` adds them with
@@ -36,8 +45,10 @@ from typing import Any, Callable, Iterator
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import hint
+from repro_torch.dist.sharding import hint, hint_scope
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
@@ -277,6 +288,28 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
                             zip(items, slices)) for i in range(n)]
 
 
+def walk_units(cfg, *trees: dict) -> Iterator[list]:
+    """The model's layers in order, in the units of the reference's
+    scanned layer bodies: each unit a list of ``(layer kind, the layer's
+    view of each tree)``, one layer of ``layers`` or ``tail``, or every
+    member of one group of ``groups``. See :func:`walk_layers`."""
+    layout = group_layout(cfg)
+    if layout is None:
+        kind = "ssm" if cfg.kind == "ssm" else "attn"
+        for views in zip(*(_unstack(t["layers"], cfg.num_layers)
+                           for t in trees)):
+            yield [(kind, *views)]
+        return
+    members, n_groups, rem = layout
+    if n_groups:
+        for views in zip(*(_unstack(t["groups"], n_groups) for t in trees)):
+            yield [(kind, *(v[name] for v in views))
+                   for name, kind in members]
+    if rem:
+        for views in zip(*(_unstack(t["tail"], rem) for t in trees)):
+            yield [("rec", *views)]
+
+
 def walk_layers(cfg, *trees: dict) -> Iterator[tuple]:
     """The model's layers in order, as ``(layer kind, the layer's view of
     each tree)`` with kind "attn", "ssm" or "rec" (an MoE layer is an
@@ -286,21 +319,29 @@ def walk_layers(cfg, *trees: dict) -> Iterator[tuple]:
     ``layers``, or the ``groups`` of :func:`group_layout` and then a
     ``tail``; the encoder's ``enc_layers`` are not walked (see
     :func:`encode`). The views write through to the stacks."""
-    layout = group_layout(cfg)
-    if layout is None:
-        kind = "ssm" if cfg.kind == "ssm" else "attn"
-        for views in zip(*(_unstack(t["layers"], cfg.num_layers)
-                           for t in trees)):
-            yield (kind, *views)
-        return
-    members, n_groups, rem = layout
-    if n_groups:
-        for views in zip(*(_unstack(t["groups"], n_groups) for t in trees)):
-            for name, kind in members:
-                yield (kind, *(v[name] for v in views))
-    if rem:
-        for views in zip(*(_unstack(t["tail"], rem) for t in trees)):
-            yield ("rec", *views)
+    for unit in walk_units(cfg, *trees):
+        yield from unit
+
+
+def remat_unit(fn: Callable, x: torch.Tensor, params, *extra,
+               remat: bool = True):
+    """``fn(x, params, *extra)``, its activations rematerialized in the
+    backward (non-reentrant checkpoint) with ``remat`` where a gradient
+    is being recorded through ``x``, ``params`` or ``extra``; else
+    ``fn`` as it is. The hint state of the forward is set again for the
+    recompute, and no RNG state is kept (the model draws none)."""
+    if not (remat and torch.is_grad_enabled()
+            and any(isinstance(t, torch.Tensor) and t.requires_grad
+                    for t in tree_flatten((x, params, extra))[0])):
+        return fn(x, params, *extra)
+    scope = hint_scope()
+
+    def body(*args):
+        with scope():
+            return fn(*args)
+
+    return checkpoint(body, x, params, *extra, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def attention_mode(cfg, serve_window: int = 0) -> tuple[str, int]:
@@ -316,15 +357,21 @@ def attention_mode(cfg, serve_window: int = 0) -> tuple[str, int]:
     return "causal", 0
 
 
-def encode(p, cfg, frames: torch.Tensor, dtype) -> torch.Tensor:
+def _enc_layer(h, lp, cfg):
+    return apply_dense_layer(lp, cfg, h, mode="full")[0]
+
+
+def encode(p, cfg, frames: torch.Tensor, dtype,
+           remat: bool = True) -> torch.Tensor:
     """The encoder of the encdec and audio kinds: the stub frontend's
     frames (B, S, d) plus sinusoidal positions, through ``enc_layers``
-    (unmasked self-attention) and ``enc_ln_final``."""
+    (unmasked self-attention; each layer rematerialized with ``remat``)
+    and ``enc_ln_final``."""
     S = frames.shape[1]
     h = frames.to(dtype) + sinusoidal_positions(
         S, cfg.d_model, device=frames.device).to(dtype)[None]
     for lp in _unstack(p["enc_layers"], cfg.enc_num_layers):
-        h, _ = apply_dense_layer(lp, cfg, h, mode="full")
+        h = remat_unit(_enc_layer, h, lp, cfg, remat=remat)
     return apply_norm(cfg, p["enc_ln_final"], h)
 
 
@@ -337,7 +384,7 @@ def decoder_positions(cfg, x: torch.Tensor) -> torch.Tensor:
                                     device=x.device).to(x.dtype)[None]
 
 
-def embed_inputs(p, cfg, batch, dtype):
+def embed_inputs(p, cfg, batch, dtype, remat: bool = True):
     """The first layer's input and what the frontends change, as the
     reference's forward and prefill do: -> (x, mask, enc_out). x is the
     embedded tokens (B, T, d); for the vlm kind the stub patches
@@ -353,24 +400,18 @@ def embed_inputs(p, cfg, batch, dtype):
         return (torch.cat([patches, x], dim=1),
                 ("prefix", 0, cfg.enc_seq_len), None)
     if cfg.kind in ENCODER_KINDS:
-        enc_out = encode(p, cfg, batch["frames"].to(x.device), dtype)
+        enc_out = encode(p, cfg, batch["frames"].to(x.device), dtype,
+                         remat=remat)
         return decoder_positions(cfg, x), ("causal", 0, None), enc_out
     return x, None, None
 
 
-def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
-    """Full-sequence forward -> (logits, aux_losses).
-    batch: {"tokens": (B, T) int}, and the stub frontends' embeddings:
-    ``patches`` (B, enc_seq_len, d) for the vlm kind, ``frames`` (B,
-    enc_seq_len, d) for the encdec and audio kinds. The logits are the
-    text positions' (B, T, V). ``aux_losses``: the moe kind's
-    ``load_balance`` and ``router_z``, each the mean over the MoE layers;
-    empty for the other kinds. ``use_kernel`` (ssm kind): the scans
-    through the forward-only ``ssd_scan`` kernel."""
-    x, mask, enc_out = embed_inputs(p, cfg, batch, dtype)
-    mode, window, prefix_len = mask or (*attention_mode(cfg), None)
+def _apply_unit(x, unit, cfg, mode, window, prefix_len, enc_out,
+                use_kernel):
+    """One unit of :func:`walk_units` on x -> (x, the MoE layers' aux
+    dicts)."""
     auxs = []
-    for kind, lp in walk_layers(cfg, p):
+    for kind, lp in unit:
         if kind == "ssm":
             x = apply_ssm_layer(lp, cfg, x, use_kernel=use_kernel)
         elif kind == "rec":
@@ -381,6 +422,33 @@ def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
                                        enc_out=enc_out)
             if aux is not None:
                 auxs.append(aux)
+    return x, auxs
+
+
+def forward(p, cfg, batch, *, dtype=torch.bfloat16, remat: bool = True,
+            use_kernel: bool = False):
+    """Full-sequence forward -> (logits, aux_losses).
+    batch: {"tokens": (B, T) int}, and the stub frontends' embeddings:
+    ``patches`` (B, enc_seq_len, d) for the vlm kind, ``frames`` (B,
+    enc_seq_len, d) for the encdec and audio kinds. The logits are the
+    text positions' (B, T, V). ``aux_losses``: the moe kind's
+    ``load_balance`` and ``router_z``, each the mean over the MoE layers;
+    empty for the other kinds. ``remat``: each unit of
+    :func:`walk_units` (and of the encoder) rematerialized in the
+    backward. ``use_kernel`` (ssm kind): the scans through the
+    forward-only ``ssd_scan`` kernel."""
+    x, mask, enc_out = embed_inputs(p, cfg, batch, dtype, remat=remat)
+    mode, window, prefix_len = mask or (*attention_mode(cfg), None)
+    auxs = []
+    extra = () if enc_out is None else (enc_out,)
+
+    def unit_fn(x_, unit, *enc):
+        return _apply_unit(x_, unit, cfg, mode, window, prefix_len,
+                           enc[0] if enc else None, use_kernel)
+
+    for unit in walk_units(cfg, p):
+        x, a = remat_unit(unit_fn, x, unit, *extra, remat=remat)
+        auxs += a
     # the residual stream whole over ``model`` (a layer's last product
     # leaves a pending sum) before the text positions are cut out
     x = apply_norm(cfg, p["ln_final"], hint(x, ("pod", "data"), None, None))
@@ -391,10 +459,12 @@ def forward(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
     return _unembed(p, cfg, x), aux_losses
 
 
-def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16, use_kernel: bool = False):
+def loss_fn(p, cfg, batch, *, dtype=torch.bfloat16, remat: bool = True,
+            use_kernel: bool = False):
     """Mean token NLL, plus the moe kind's aux losses:
     ``moe_aux_loss_weight * load_balance + 1e-3 * router_z``."""
-    logits, aux = forward(p, cfg, batch, dtype=dtype, use_kernel=use_kernel)
+    logits, aux = forward(p, cfg, batch, dtype=dtype, remat=remat,
+                          use_kernel=use_kernel)
     loss = softmax_cross_entropy(logits, batch["labels"])
     if "load_balance" in aux:
         loss = loss + cfg.moe_aux_loss_weight * aux["load_balance"] \
@@ -412,4 +482,5 @@ __all__ = ["ENCODER_KINDS", "FRONTEND_KINDS", "apply_cross",
            "apply_ssm_layer", "attention_mode", "decoder_positions",
            "embed_inputs", "encode", "forward", "group_layout", "hybrid_layout",
            "init_dense_layer", "init_model", "init_rec_layer",
-           "init_ssm_layer", "init_tree", "loss_fn", "walk_layers"]
+           "init_ssm_layer", "init_tree", "loss_fn", "remat_unit",
+           "walk_layers", "walk_units"]

@@ -132,9 +132,11 @@ def make_sim_grad_probe(model, x: torch.Tensor, y: torch.Tensor) -> Callable:
 
 def make_scale_grad_probe(model, dtype) -> Callable:
     """‖∇loss(ŵ; batch)‖ for scale mode — fed a dedicated probe batch
-    stream so train/eval data draws are untouched."""
+    stream so train/eval data draws are untouched; without remat, as
+    the reference's."""
     def probe(global_params: dict, batch: dict) -> torch.Tensor:
-        return _grad_norm(lambda p: model.loss(p, batch, dtype=dtype),
+        return _grad_norm(lambda p: model.loss(p, batch, dtype=dtype,
+                                               remat=False),
                           global_params)
 
     return probe

@@ -25,8 +25,15 @@ test can feed it the reference's draws. The token streams are numpy and
 equal the reference's. A checkpoint carries the draw source's state
 (``draws.state_dict()``) where the reference carries its key.
 
-The reference's ``donate=True`` is the port's only behaviour: its step
-updates the parameters in place, so ``donate=False`` raises. The vlm,
+The interval step rematerializes its layers' activations in the
+backward (the reference's ``make_tthf_train_step`` default); the
+evaluation loss and the gradient probe, which are no training step,
+pass ``remat=False`` as the reference's do. ``donate=True``
+(the reference's default) is the port's in-place step: the step
+updates the parameter tensors it is given, so a tensor taken from
+``trainer.params`` before an interval holds the interval's result.
+``donate=False`` leaves those tensors as they were: the step works on a
+copy, the counterpart of an undonated ``jit``. The vlm,
 encdec and audio kinds raise ``ValueError`` at construction: the
 interval batch holds tokens and labels only, and the reference's
 trainer fails on these kinds with a ``KeyError`` on the missing
@@ -77,7 +84,8 @@ class TrainerConfig:
     log_path: Optional[str] = None
     dtype: str = "float32"
     seed: int = 0
-    donate: bool = True             # the step updates params in place
+    donate: bool = True             # the step updates params in place;
+                                    # False: it works on a copy
     fused_interval: bool = False    # flat (R, P) param carrier + fused
                                     # SGD+consensus block-ends
     prefetch: bool = True           # build/copy interval k+1's batch
@@ -93,9 +101,6 @@ class TrainerConfig:
             raise ValueError(
                 f"unknown dtype {self.dtype!r}; expected one of "
                 f"{sorted(_DTYPES)}")
-        if not self.donate:
-            raise ValueError("donate=False: the port's step always "
-                             "updates the parameters in place")
 
 
 class ScaleTrainer:
@@ -264,7 +269,8 @@ class ScaleTrainer:
                 b = self._to_device({k: torch.from_numpy(v) for k, v in
                                      next(self._eval_gen).items()})
                 self._eval_draws += 1
-                losses.append(float(self.model.loss(g, b, dtype=self.dtype)))
+                losses.append(float(self.model.loss(g, b, dtype=self.dtype,
+                                                    remat=False)))
         return float(np.mean(losses))
 
     # ------------------------------------------------------------------
@@ -336,9 +342,14 @@ class ScaleTrainer:
         obs = self.obs
         ledger_mark = len(self.ledger.events)
         ev = self._resolver.resolve_interval(self.interval, self.draws)
+        params = self.params
+        if not self.tcfg.donate:
+            # undonated: the caller's tensors stay as they were
+            params = (params.clone() if isinstance(params, torch.Tensor)
+                      else tree_map(lambda l: l.clone(), params))
         with obs.span("interval", interval=self.interval,
                       tau=self.scale.tau):
-            self.params, loss = self._step(self.params, batch, ev.agg,
+            self.params, loss = self._step(params, batch, ev.agg,
                                            self.interval, ev.refresh)
         if ev.root_served:
             # a copy: the step updates the replicas in place

@@ -486,17 +486,25 @@ def test_trainer_refuses_unported_options():
     # checkpoints and the observability sink are ported
     # (tests/test_torch_ckpt.py, tests/test_torch_obs.py); a kind fed a
     # frontend is refused (the interval batch holds tokens only, and the
-    # reference's trainer fails on whisper's frames), and the port's
-    # step always updates the parameters in place (the reference's
-    # donate=True)
+    # reference's trainer fails on whisper's frames). donate=False is
+    # ported too: the step works on a copy, and the tensors the trainer
+    # held before the interval keep their values (tests/test_torch_remat.py
+    # holds it to donate=True)
     sc = _scale(dist.TTHFScaleConfig)
     with pytest.raises(ValueError, match="token batches only"):
         ScaleTrainer(get_arch("whisper-small").reduced(**_KW), sc,
                      TrainerConfig(), device="cpu")
     with pytest.raises(ValueError, match="unknown dtype"):
         TrainerConfig(dtype="float16")
-    with pytest.raises(ValueError, match="in place"):
-        TrainerConfig(donate=False)
+    tr = ScaleTrainer(_CFG, sc, TrainerConfig(
+        batch_per_replica=2, seq_len=16, eval_every=0, prefetch=False,
+        donate=False), device="cpu").init()
+    given = tree_leaves(tr.params)
+    before = [t.clone() for t in given]
+    tr.run(1)
+    assert all(torch.equal(a, b) for a, b in zip(given, before))
+    assert not all(torch.equal(a, b)
+                   for a, b in zip(tree_leaves(tr.params), before))
 
 
 def test_scale_cli_summary_line_matches_reference(capsys):

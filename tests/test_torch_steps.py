@@ -14,7 +14,9 @@ reference's (``repro.launch.steps``), and the TT-HF shardings of
   at full size, exactly, against the reference's ``ShardingRules.spec``
   on ``AbstractMesh``es.
 * The builders' programs on a one-rank gloo mesh: the train step equals
-  the unsharded step; prefill, decode and both serving pairs run and
+  the unsharded step; the train step and the fused TT-HF interval
+  (``build_tthf_program``) with remat equal themselves without it,
+  bitwise, on DTensors; prefill, decode and both serving pairs run and
   write their caches.
 """
 import _torch_threads  # noqa: F401  (torch threads per xdist worker)
@@ -317,6 +319,47 @@ def test_train_program_on_a_mesh_equals_the_step(one_rank_mesh, optimizer):
         assert float(local(l_mesh)) == float(l_bare)
     for (path, a), (_, b) in zip(tree_items(p_mesh), tree_items(p_bare)):
         assert torch.equal(a, b), path
+
+
+def test_programs_with_and_without_remat_are_bitwise(one_rank_mesh):
+    """``build_program``'s train step and ``build_tthf_program``'s fused
+    interval on DTensors, with remat (the default) and without: the same
+    losses and parameters bitwise."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.distributed import FlatParamSpec, stack_replicas
+    from repro_torch.dist.sharding import local
+    from repro_torch.launch.dryrun import build_tthf_program
+    model = build_model(_CFG)
+    shape = InputShape("train_4k", T, B, "train")
+    idx = torch.zeros((), dtype=torch.int32)
+    runs = []
+    for remat in (True, False):
+        fn, _ = steps.build_program(model, shape, one_rank_mesh, lr=1e-2,
+                                    dtype=torch.float32, remat=remat)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        losses = [float(local(fn(params, (), {k: torch.from_numpy(v) for
+                                              k, v in b.items()}, idx)[2]))
+                  for b in _batches(2)]
+        runs.append((losses, [t.clone() for _, t in tree_items(params)]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    flat = FlatParamSpec.for_model(model).flatten(stack_replicas(
+        model.init(torch.Generator().manual_seed(0), "cpu"), 2))
+    outs = []
+    for remat in (True, False):
+        fn, args = build_tthf_program(model, shape, one_rank_mesh, "tthf",
+                                      "fused", tau=2, consensus_every=2,
+                                      fused_interval=True, replicas=2,
+                                      remat=remat)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, _CFG.vocab_size, size=tuple(args[1]["tokens"].shape)).astype(
+                np.int32))
+        picks = torch.zeros(tuple(args[2].shape), dtype=torch.int32)
+        out, loss = fn(flat.clone(), {"tokens": toks,
+                                      "labels": toks.roll(1, dims=-1)},
+                       picks, idx)
+        outs.append((float(local(loss)), local(out).clone()))
+    assert outs[0][0] == outs[1][0] and torch.equal(outs[0][1], outs[1][1])
 
 
 def test_serving_programs_run_on_a_mesh(one_rank_mesh):
