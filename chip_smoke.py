@@ -3885,14 +3885,17 @@ def obs_records(d: Path, kind: str) -> list:
 
 
 def obs_trace(d: Path) -> dict:
-    """trace.json, validated; its span and counter names counted."""
+    """trace.json, validated; its span and counter names counted, the
+    layer spans and counters (the reference has none) left out."""
     from repro_torch.obs import validate_chrome_trace
+    from repro_torch.obs.trace import LAYER
     doc = json.loads((d / "trace.json").read_text())
     problems = validate_chrome_trace(doc)
     assert not problems, problems[:5]
     names: dict = {}
     for e in doc["traceEvents"]:
-        names[e["name"]] = names.get(e["name"], 0) + 1
+        if e.get("cat") != LAYER:
+            names[e["name"]] = names.get(e["name"], 0) + 1
     return names
 
 

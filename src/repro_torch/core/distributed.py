@@ -34,6 +34,11 @@ composed (R, R) device matrix), with per-interval refreshes of the
 mixing matrices (``refreshable``). The weights and matrix forms work in
 place: the matrix form in column blocks of the buffer, so that at 8
 replicas of qwen1.5-0.5b it never holds a second (R, P) buffer.
+
+A step takes the run's observability sink at call time (``obs=``,
+default ``NULL_OBS``) and opens device spans (:mod:`repro_torch.obs`)
+around each replica's loss and gradients (``replica_grads``), each
+consensus block's end (``block_end``) and the aggregation.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from repro_torch.kernels.runtime import DeviceLike, resolve_device
 from repro_torch.models.common import (
     tree_from_items, tree_items, tree_leaves, tree_map)
 from repro_torch.models.registry import ModelApi
+from repro_torch.obs.sink import NULL_OBS
 
 # columns of the (R, P) buffer (or of a leaf) that the matrix form maps at
 # a time: a (R, 2^22) f32 block is 128 MiB at R = 8
@@ -504,7 +510,8 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
                          param_dtype=torch.float32,
                          device: DeviceLike = None, rows=None):
     """Returns ``(step, net)``; ``step(params, batch, agg, step_idx=None,
-    mix_refresh=None) -> (params, loss)`` runs one aggregation interval.
+    mix_refresh=None, obs=NULL_OBS) -> (params, loss)`` runs one
+    aggregation interval, its layer spans into ``obs``.
 
     params: every leaf has a leading replica axis R (per-leaf step), or
     the flat ``(R, P)`` buffer of ``step.spec`` (``fused_interval=True``).
@@ -582,7 +589,8 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
         return plan is not None and not (plan.is_noop and refresh is None)
 
     def block_batches(batch, b):
-        return [{k: v[b * ce + t] for k, v in batch.items()}
+        """Block ``b``'s microbatches with their microstep indices."""
+        return [(b * ce + t, {k: v[b * ce + t] for k, v in batch.items()})
                 for t in range(ce)]
 
     if fused_interval:
@@ -593,15 +601,17 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
             fused_kernel=fused_kernel,
             param_dtype=param_dtype, device=device, rows=rows, sync=sync)
 
-    def microstep(params, mb, lr):
+    def microstep(params, mb, lr, obs, m):
         """Per-replica SGD (eqs. 8-9), in place — no cross-replica
-        traffic."""
+        traffic. ``m``: the microstep's index in the interval."""
         R = tree_leaves(params)[0].shape[0]
         losses = []
         for r in range(R):
-            loss, grads = _loss_and_grads(
-                model, tree_map(lambda l: l[r], params), _replica(mb, r),
-                dtype, remat)
+            with obs.device_span("replica_grads", device, replica=r,
+                                 microstep=m):
+                loss, grads = _loss_and_grads(
+                    model, tree_map(lambda l: l[r], params),
+                    _replica(mb, r), dtype, remat)
             with torch.no_grad():
                 for w, g in zip(tree_leaves(params), grads):
                     w[r].sub_(lr.to(w.dtype) * g.to(w.dtype))
@@ -614,18 +624,22 @@ def make_tthf_train_step(model: ModelApi, scale: TTHFScaleConfig, *,
                                              refresh=refresh)
                         .reshape(l.shape).to(l.dtype), params)
 
-    def step(params, batch, agg, step_idx=None, mix_refresh=None):
+    def step(params, batch, agg, step_idx=None, mix_refresh=None,
+             obs=NULL_OBS):
         lr = torch.full((), scale.lr, dtype=torch.float32, device=device)
         block_losses = []
         for b in range(n_blocks):
-            losses = [microstep(params, mb, lr)
-                      for mb in block_batches(batch, b)]
+            losses = [microstep(params, mb, lr, obs, m)
+                      for m, mb in block_batches(batch, b)]
             if mix_active(mix_refresh):
-                params = rows.cross(lambda p: mix(p, mix_refresh), params)
+                with obs.device_span("block_end", device, block=b):
+                    params = rows.cross(lambda p: mix(p, mix_refresh),
+                                        params)
             block_losses.append(_mean(losses))
         if sync != "local":
-            params = rows.cross(lambda p: aggregate(p, agg, flat=False),
-                                params)
+            with obs.device_span("aggregation", device):
+                params = rows.cross(
+                    lambda p: aggregate(p, agg, flat=False), params)
         return params, rows.mean(_mean(block_losses))
 
     return step, net
@@ -650,34 +664,37 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
     N, s = net.num_clusters, net.cluster_size
     use_kernel = fused_kernel is None or fused_kernel
 
-    def replica_grads(flat, mb, r):
-        return _loss_and_grads(model, spec.unflatten_one(flat[r]),
-                               _replica(mb, r), dtype, remat)
+    def replica_grads(flat, mb, r, obs, m):
+        with obs.device_span("replica_grads", device, replica=r,
+                             microstep=m):
+            return _loss_and_grads(model, spec.unflatten_one(flat[r]),
+                                   _replica(mb, r), dtype, remat)
 
-    def sgd(flat, mb, lr):
+    def sgd(flat, mb, lr, obs, m):
         """One microstep on the flat buffer, in place."""
         losses = []
         for r in range(flat.shape[0]):
-            loss, grads = replica_grads(flat, mb, r)
+            loss, grads = replica_grads(flat, mb, r, obs, m)
             with torch.no_grad():
                 for w, g in zip(spec.leaf_views(flat[r]), grads):
                     w.sub_(lr.to(w.dtype) * g.to(w.dtype))
             losses.append(loss)
         return _mean(losses)
 
-    def grad_flat(flat, mb):
+    def grad_flat(flat, mb, obs, m):
         """Mean loss and the flat (R, P) gradients; pad columns zero."""
         g = torch.empty_like(flat)
         g[:, spec.total:] = 0
         losses = []
         for r in range(flat.shape[0]):
-            loss, grads = replica_grads(flat, mb, r)
+            loss, grads = replica_grads(flat, mb, r, obs, m)
             for view, gr in zip(spec.leaf_views(g[r]), grads):
                 view.copy_(gr)
             losses.append(loss)
         return g, _mean(losses)
 
-    def step(flat, batch, agg, step_idx=None, mix_refresh=None):
+    def step(flat, batch, agg, step_idx=None, mix_refresh=None,
+             obs=NULL_OBS):
         lr = torch.full((), scale.lr, dtype=torch.float32, device=device)
         active = mix_active(mix_refresh)
         W0 = plan.fused_w(mix_refresh) if active else None
@@ -688,27 +705,33 @@ def _make_fused_interval_step(model: ModelApi, scale: TTHFScaleConfig, *,
             if kernel_end:
                 # the LAST microstep's update fuses with the mix: one
                 # read-w / read-g / write-mixed-w pass
-                losses = [sgd(flat, mb, lr) for mb in mbs[:-1]]
-                g, last = grad_flat(flat, mbs[-1])
-                flat = rows.cross(lambda fg: fused_consensus_sgd(
-                    fg[0].view(N, s, -1), fg[1].view(N, s, -1), W0, lr
-                ).view(fg[0].shape), (flat, g))
+                losses = [sgd(flat, mb, lr, obs, m) for m, mb in mbs[:-1]]
+                m, mb = mbs[-1]
+                g, last = grad_flat(flat, mb, obs, m)
+                with obs.device_span("block_end", device, block=b):
+                    flat = rows.cross(lambda fg: fused_consensus_sgd(
+                        fg[0].view(N, s, -1), fg[1].view(N, s, -1), W0, lr
+                    ).view(fg[0].shape), (flat, g))
                 del g
                 losses.append(last)
             else:
-                losses = [sgd(flat, mb, lr) for mb in mbs]
+                losses = [sgd(flat, mb, lr, obs, m) for m, mb in mbs]
                 if W0 is not None:
-                    flat = rows.cross(lambda f: torch.einsum(
-                        "nij,njm->nim", W0.to(f.dtype),
-                        f.view(N, s, -1)).reshape(f.shape), flat)
+                    with obs.device_span("block_end", device, block=b):
+                        flat = rows.cross(lambda f: torch.einsum(
+                            "nij,njm->nim", W0.to(f.dtype),
+                            f.view(N, s, -1)).reshape(f.shape), flat)
                 elif active:
                     # non-fused_power backend: exact per-event semantics
-                    flat = rows.cross(lambda f: plan.apply(
-                        f.view(N, s, -1), refresh=mix_refresh
-                    ).reshape(f.shape).to(f.dtype), flat)
+                    with obs.device_span("block_end", device, block=b):
+                        flat = rows.cross(lambda f: plan.apply(
+                            f.view(N, s, -1), refresh=mix_refresh
+                        ).reshape(f.shape).to(f.dtype), flat)
             block_losses.append(_mean(losses))
         if sync != "local":
-            flat = rows.cross(lambda f: aggregate(f, agg, flat=True), flat)
+            with obs.device_span("aggregation", device):
+                flat = rows.cross(lambda f: aggregate(f, agg, flat=True),
+                                  flat)
         return flat, rows.mean(_mean(block_losses))
 
     step.spec = spec

@@ -31,10 +31,14 @@ its δ̂/σ̂ estimators at every aggregation, from minibatches of a stream
 of its own (``draws.probe_minibatch``).
 
 ``run(obs=...)`` takes an observability sink (:mod:`repro_torch.obs`):
-spans of the two timescales, and per round the measured divergence
-beside the theory's bounds (the ``round`` record), the comms
-attribution (``comm``) and, at evaluations, ‖∇F(ŵ)‖ (``eval``). The
-probes only read the fleet, so an instrumented run equals a bare one.
+spans of the two timescales, the layer spans (device time of each
+``local_step``, of the consensus event, the aggregation and the
+``eval``; the host's ``netsim.snapshot`` builds) and, with a trace dir's
+telemetry, per round the measured divergence beside the theory's bounds
+(the ``round`` record), the comms attribution (``comm``) and, at
+evaluations, ‖∇F(ŵ)‖ (``eval``). The probes only read the fleet, so an
+instrumented run equals a bare one; the spans-only sink adds no probe
+and no synchronise.
 
 Baselines (Sec. IV-B) are the same engine with ``mode``:
   * ``tthf``        — Algorithm 1 (sampled aggregation + D2D consensus)
@@ -358,7 +362,8 @@ class TTHFTrainer:
                 st.params, torch.as_tensor(spec.device_matrix, device=dev))
         st.global_params = g
 
-    def _local_span(self, st: TTHFState, t_from: int, t_to: int) -> int:
+    def _local_span(self, st: TTHFState, t_from: int, t_to: int,
+                    obs=NULL_OBS) -> int:
         """Run the pure local-SGD iterations t_from..t_to (inclusive);
         updates st.params in place and returns the device-steps taken.
         Under dynamics each iteration's snapshot says who is up."""
@@ -374,8 +379,9 @@ class TTHFTrainer:
                 live += int(up.sum())
                 if not up.all():
                     dark = torch.as_tensor(~up, device=self.device)
-            self._local_step(st.params, idx.to(self.device),
-                             float(self.eta(u - 1)), dark)
+            with obs.device_span("local_step", self.device, t=u):
+                self._local_step(st.params, idx.to(self.device),
+                                 float(self.eta(u - 1)), dark)
         return live
 
     # ------------------------------------------------------------------
@@ -513,9 +519,11 @@ class TTHFTrainer:
         assert eval_every >= 1, "eval_every must be a positive period"
         obs = obs if obs is not None else NULL_OBS
         st = state or self.init(seed)
-        if obs.enabled:
+        if obs.telemetry:
             self._ensure_obs()      # model_dim is set by init()
         self._resolver.obs = obs
+        if self.tvnet is not None:
+            self.tvnet.obs = obs
         hist = History()
         res = self._resolver
         ctl = res.controller
@@ -531,30 +539,34 @@ class TTHFTrainer:
                 b = res.span_end(t, t_last, eval_every)
                 with obs.span("round", t=b):
                     with obs.span("interval", t_from=t, t_to=b):
-                        live = self._local_span(st, t, b)
+                        live = self._local_span(st, t, b, obs)
                     self.ledger.record_local_step(live)
 
                     eta_b = self.eta(b - 1)
                     ev = res.resolve(b, st.draws)
                     ups_pre = None
-                    if ev.consensus is not None and obs.enabled:
+                    if ev.consensus is not None and obs.telemetry:
                         ups_pre = self._upsilon_for(st, ev.consensus)
                     gamma_used = np.zeros((N,), np.int32)
                     gamma_sat = 0
                     if ev.consensus is not None:
-                        with obs.span("consensus_event", t=b):
+                        with obs.span("consensus_event", t=b), \
+                                obs.device_span("consensus_event",
+                                                self.device, t=b):
                             gamma_used, gamma_sat = self._consensus_event(
                                 st, ev.consensus, eta_b)
                         self._gamma_saturated_total += gamma_sat
                     if ev.aggregation is not None:
                         with obs.span("aggregation", t=b,
-                                      kind=ev.aggregation.kind):
+                                      kind=ev.aggregation.kind), \
+                                obs.device_span("aggregation", self.device,
+                                                t=b):
                             self._apply_aggregation(st, ev.aggregation)
                         if ctl is not None and ctl.wants_grad_stats:
                             self._observe_control_grads(st)
                     ledger_mark = len(self.ledger.events)
                     ev.billing.charge(self.ledger, gamma_used)
-                    if obs.enabled:
+                    if obs.telemetry:
                         self._emit_round_telemetry(
                             obs, st, b, ev, gamma_used, ups_pre, eta_b,
                             t_prev_agg, ledger_mark, gamma_sat)
@@ -562,7 +574,8 @@ class TTHFTrainer:
                         t_prev_agg = b
 
                     if b % eval_every == 0 or b == t_last:
-                        loss, acc = self._eval(st.global_params)
+                        with obs.device_span("eval", self.device, t=b):
+                            loss, acc = self._eval(st.global_params)
                         hist.ts.append(b)
                         hist.global_loss.append(loss)
                         hist.global_acc.append(acc)
@@ -577,7 +590,7 @@ class TTHFTrainer:
                         hist.uplinks.append(self.ledger.uplinks)
                         hist.d2d_msgs.append(self.ledger.d2d_msgs)
                         hist.active_devices.append(ev.active_devices)
-                        if obs.enabled:
+                        if obs.telemetry:
                             obs.emit("eval", b, loss=loss, acc=acc,
                                      grad_norm=float(self._obs_grad_probe(
                                          st.global_params)))

@@ -29,6 +29,8 @@ from repro_torch.core.topology import (
     Network, laplacian_weights, metropolis_weights, spectral_radius)
 from repro_torch.netsim.events import EventStream, NetworkEvent
 from repro_torch.netsim.faults import renormalized_varrho
+from repro_torch.obs.sink import NULL_OBS
+from repro_torch.obs.trace import LAYER
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +223,10 @@ class TimeVaryingNetwork:
     and aggregation steps (the stream still advances its chains through
     the skipped iterations, so the sample path does not depend on the
     event calendar).
+
+    ``obs`` (the run's sink, set by the trainer) gets a host span
+    ``netsim.snapshot`` around each build and the ``netsim.snapshot``
+    counter of builds and cache hits.
     """
 
     def __init__(self, base: Network, cfg: DynamicsConfig,
@@ -230,13 +236,22 @@ class TimeVaryingNetwork:
         self.weights = weights
         self.events = EventStream(cfg, base.adj)
         self._cache: dict[int, NetworkSnapshot] = {}
+        self.obs = NULL_OBS
+        self._builds = self._hits = 0
 
     def snapshot(self, t: int) -> NetworkSnapshot:
         snap = self._cache.get(t)
         if snap is None:
-            snap = self._build(self.events.at(t))
+            ev = self.events.at(t)
+            with self.obs.span("netsim.snapshot", cat=LAYER, t=t):
+                snap = self._build(ev)
+            self._builds += 1
             self._cache.clear()         # trainers walk forward; keep 1
             self._cache[t] = snap
+        else:
+            self._hits += 1
+        self.obs.counter("netsim.snapshot", cat=LAYER, builds=self._builds,
+                         hits=self._hits)
         return snap
 
     def _build(self, ev: NetworkEvent) -> NetworkSnapshot:

@@ -20,6 +20,14 @@ a no-op costing one attribute lookup — and are handed a real sink via
 ``make_obs(trace_dir, ...)``. Unlike the reference, which swallows
 ``jax.profiler`` errors, a profiler that fails to start or to export
 fails the run.
+
+``Observability()``, with no config, is the *spans-only* sink: spans
+and counters held in memory (:meth:`Observability.spans`), no file, no
+probe, no synchronise on the path (``telemetry`` False: the trainers'
+probes, gauges and records, which read the card, stay off). It is handed
+to a run as it is (``TTHFTrainer.run(obs=)``, ``ScaleTrainer.run(obs=)``)
+and closed after it. Every live sink records a ``gc`` span a garbage
+collection until it is closed.
 """
 from __future__ import annotations
 
@@ -48,10 +56,14 @@ class ObsConfig:
 class _NullObs:
     """The disabled sink — safe to call everywhere, records nothing."""
     enabled = False
+    telemetry = False
     tracer = None
     metrics = None
 
     def span(self, name: str, **args: Any):
+        return nullcontext(self)
+
+    def device_span(self, name: str, device, **args: Any):
         return nullcontext(self)
 
     def instant(self, name: str, **args: Any) -> None:
@@ -84,18 +96,33 @@ def _jsonable(v: Any) -> Any:
 
 
 class Observability:
+    """A live sink: with ``cfg`` (a trace dir), the run directory's
+    trace, stream, manifest and profile; without, spans and counters in
+    memory alone (the spans-only sink)."""
     enabled = True
 
-    def __init__(self, cfg: ObsConfig, run_name: str = "run",
-                 config: Any = None, extra: Optional[dict] = None):
-        if not cfg.trace_dir:
+    def __init__(self, cfg: Optional[ObsConfig] = None,
+                 run_name: str = "run", config: Any = None,
+                 extra: Optional[dict] = None):
+        if cfg is not None and not cfg.trace_dir:
             raise ValueError("Observability needs a trace_dir; use "
+                             "Observability() for the spans-only sink, "
                              "NULL_OBS / make_obs(None) for the disabled "
                              "sink")
         self.cfg = cfg
+        self.telemetry = cfg is not None
+        self.tracer = Tracer(annotate=cfg is not None and cfg.profile)
+        self._closed = False
+        self.dir = self.metrics = self._profiler = None
+        if cfg is not None:
+            self._open_dir(cfg, run_name, config, extra)
+        self.tracer.watch_gc(True)
+
+    def _open_dir(self, cfg: ObsConfig, run_name: str, config: Any,
+                  extra: Optional[dict]) -> None:
+        """The run directory: its stream, manifest and profiler."""
         self.dir = Path(cfg.trace_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
-        self.tracer = Tracer(annotate=cfg.profile)
         from repro_torch.train.metrics import MetricLogger
         self.metrics = MetricLogger(str(self.dir / "metrics.jsonl"),
                                     console_every=cfg.console_every,
@@ -103,7 +130,6 @@ class Observability:
         self.manifest_path = write_manifest(
             str(self.dir), config=config,
             extra={"run": run_name, **(extra or {})})
-        self._profiler = None
         if cfg.profile:
             try:
                 self._profiler = make_profiler(str(self.dir))
@@ -111,13 +137,22 @@ class Observability:
             except BaseException:
                 self.metrics.close()
                 raise
-        self._closed = False
 
     # -- tracer passthrough -------------------------------------------------
     @contextmanager
     def span(self, name: str, **args: Any):
         with self.tracer.span(name, **args):
             yield self
+
+    @contextmanager
+    def device_span(self, name: str, device, **args: Any):
+        with self.tracer.device_span(name, device, **args):
+            yield self
+
+    def spans(self) -> list[dict]:
+        """The resolved span records (:meth:`Tracer.spans`): read after
+        the window, it waits for the card."""
+        return self.tracer.spans()
 
     def instant(self, name: str, **args: Any) -> None:
         self.tracer.instant(name, **args)
@@ -127,19 +162,27 @@ class Observability:
 
     # -- telemetry ----------------------------------------------------------
     def emit(self, kind: str, step: int, **fields: Any) -> None:
-        """One JSONL record tagged ``kind`` into the shared stream."""
+        """One JSONL record tagged ``kind`` into the shared stream (none
+        on the spans-only sink)."""
+        if self.metrics is None:
+            return
         self.metrics.log(step, kind=kind,
                          **{k: _jsonable(v) for k, v in fields.items()})
 
     # -- lifecycle ----------------------------------------------------------
     def flush(self) -> None:
-        """Export the Chrome trace collected so far (full rewrite)."""
-        self.tracer.export(str(self.dir / "trace.json"))
+        """Export the Chrome trace collected so far (full rewrite); the
+        spans-only sink writes nothing."""
+        if self.dir is not None:
+            self.tracer.export(str(self.dir / "trace.json"))
 
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        self.tracer.watch_gc(False)
+        if self.dir is None:
+            return
         try:
             self.flush()
             if self._profiler is not None:

@@ -6,7 +6,8 @@ make_tthf_train_step`.
 Handles: data sharding per replica, interval batching (tau x R x b x
 T), periodic held-out eval of the *global* model, checkpoint save and
 resume, the ledger, and the observability sink (spans, the per-interval
-``round``/``comm`` records and the ``ledger`` counter). Every
+``round``/``comm`` records and the ``ledger`` counter; the trace dir's
+sink by default, any sink through ``run(obs=)``). Every
 scenario (static, netsim dynamics, fog hierarchy, the control plane and
 their compositions) runs through ONE ``_interval``: the
 :class:`~repro_torch.rounds.resolver.RoundResolver` supplies the step's
@@ -175,7 +176,6 @@ class ScaleTrainer:
             tcfg.trace_dir, profile=tcfg.profile, run_name="train-scale",
             config={"model": cfg, "scale": scale, "trainer": tcfg},
             extra={"arch": cfg.name, "sync": sync})
-        self._resolver.obs = self.obs
         self._obs_probe = None
         self._obs_grad_probe = None
         self._obs_gauges = None
@@ -305,12 +305,11 @@ class ScaleTrainer:
             return self.params[:, :self._spec.total]
         return self.params
 
-    def _emit_interval_telemetry(self, loss, ledger_mark, ev):
+    def _emit_interval_telemetry(self, obs, loss, ledger_mark, ev):
         """One drain per interval: the probe over the parameters, then
         measured divergence + theory gauges + comms attribution into the
         shared JSONL stream. ``self.interval`` is still the 0-based
         index of the interval that just ran."""
-        obs = self.obs
         aux = {k: v.cpu().numpy()
                for k, v in self._obs_probe(self._probe_params()).items()}
         tau = self.scale.tau
@@ -333,13 +332,12 @@ class ScaleTrainer:
         obs.emit("round", self.interval + 1, **rec)
         emit_comm(obs, self.ledger, ledger_mark, self.interval + 1)
 
-    def _interval(self, batch):
+    def _interval(self, batch, obs):
         """ONE interval for every scenario: the resolver's aggregation
         argument and refresh into the step, the root's snapshot when a
         live root event broadcast it, then the interval's bill. Spans
         time the host's dispatch; nothing here waits for the card
-        unless the sink is on (the telemetry's drain)."""
-        obs = self.obs
+        unless the sink has telemetry (the telemetry's drain)."""
         ledger_mark = len(self.ledger.events)
         ev = self._resolver.resolve_interval(self.interval, self.draws)
         params = self.params
@@ -350,7 +348,8 @@ class ScaleTrainer:
         with obs.span("interval", interval=self.interval,
                       tau=self.scale.tau):
             self.params, loss = self._step(params, batch, ev.agg,
-                                           self.interval, ev.refresh)
+                                           self.interval, ev.refresh,
+                                           obs=obs)
         if ev.root_served:
             # a copy: the step updates the replicas in place
             self._global = tree_map(lambda l: l.clone(), self._replica0())
@@ -367,7 +366,8 @@ class ScaleTrainer:
                 obs.instant("aggregation", interval=self.interval,
                             uplinks_by_level=ev.billing.uplinks_by_level,
                             root_served=ev.root_served)
-            self._emit_interval_telemetry(loss, ledger_mark, ev)
+        if obs.telemetry:
+            self._emit_interval_telemetry(obs, loss, ledger_mark, ev)
         return loss
 
     # ------------------------------------------------------------------
@@ -440,12 +440,18 @@ class ScaleTrainer:
         return self
 
     # ------------------------------------------------------------------
-    def run(self, intervals: Optional[int] = None):
+    def run(self, intervals: Optional[int] = None, obs=None):
+        """``intervals`` (default ``tcfg.intervals``) intervals into
+        ``obs`` (default: the trainer's own sink, the trace dir's or
+        ``NULL_OBS``)."""
         if self.params is None:
             self.init()
-        obs = self.obs
-        if obs.enabled:
+        obs = obs if obs is not None else self.obs
+        if obs.telemetry:
             self._ensure_obs()
+        self._resolver.obs = obs
+        if self.tvnet is not None:
+            self.tvnet.obs = obs
         n = intervals if intervals is not None else self.tcfg.intervals
         loader = None
         if self.tcfg.prefetch and n > 1:
@@ -459,23 +465,22 @@ class ScaleTrainer:
                           replicas=self.scale.replicas):
                 for _ in range(n):
                     with obs.span("round", interval=self.interval):
-                        self._run_interval(loader)
+                        self._run_interval(loader, obs)
         finally:
             if loader is not None:
                 loader.close()
             obs.flush()
         return self
 
-    def _run_interval(self, loader) -> None:
+    def _run_interval(self, loader, obs) -> None:
         """One interval of :meth:`run`: its batch, the step, the logs,
         the eval and the checkpoint that fall due."""
-        obs = self.obs
         if loader is not None:
             batch = loader.get()
             self._train_draws += self.scale.tau
         else:
             batch = self._interval_batch()
-        loss = self._interval(batch)
+        loss = self._interval(batch, obs)
         self.interval += 1
         logs = {"train_loss": float(loss),
                 "uplinks": self.ledger.uplinks,
@@ -484,7 +489,7 @@ class ScaleTrainer:
                 self.interval % self.tcfg.eval_every == 0:
             with obs.span("eval", interval=self.interval):
                 logs["eval_loss"] = self.evaluate()
-            if obs.enabled:
+            if obs.telemetry:
                 b = self._to_device({k: torch.from_numpy(v) for k, v in
                                      next(self._obs_gen).items()})
                 logs["grad_norm"] = float(self._obs_grad_probe(

@@ -55,7 +55,7 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.obs import manifest, telemetry
 from repro_torch.obs.sink import NULL_OBS, make_obs
 from repro_torch.obs.trace import (
-    Tracer, profiler_trace, validate_chrome_trace)
+    LAYER, Tracer, profiler_trace, validate_chrome_trace)
 from repro_torch.rounds import RoundProgram
 from repro_torch.train import ScaleTrainer, TrainerConfig
 
@@ -74,9 +74,11 @@ def _trace(d: Path) -> dict:
 
 def _shape(doc: dict) -> list:
     """A trace without its clock: each event's name, phase and args
-    (counters' values included), in order."""
+    (counters' values included), in order. The port's layer spans and
+    counters (category ``layer``), which the reference lacks, are left
+    out."""
     return [(e["name"], e["ph"], e.get("args")) for e in doc["traceEvents"]
-            if e["ph"] != "M"]
+            if e["ph"] != "M" and e.get("cat") != LAYER]
 
 
 # ===========================================================================
