@@ -80,10 +80,22 @@ caught):
              scan), inputs rotated past the L2; its share of two bounds:
              the operations as three TF32 products on the tensor cores
              (the kernel's, in the kernels line) and in f32 on the CUDA
-             cores.
+             cores. ``sim_nn_forward`` and ``sim_nn_update`` (the sim
+             path's local step) at ragged shapes (hidden not a multiple
+             of the 512-column tile, B 1, 3, 5 and 16, and 32 and 40 in
+             tiles of 16) and at one device of the sim path's shape,
+             with a dark device and without (forward to 1e-5, update to
+             1e-6; the dark device's H zeros and its w1 bitwise); the
+             update at a large reg and η, where it has to match the
+             plain update and miss it without the L2 term; then timed at
+             ``(125, 16, 784, 7840)`` beside their plain versions and
+             ``torch.baddbmm`` (``b1 + X W1``; ``(1 - η reg) W1 - η Xᵀ
+             dH`` in place on a copy), in turns.
 3. slice   — ``TTHFTrainer`` on the card, kernel on: 40 steps, with the
-             launch counter reset just before; then the same run through
-             the ``masked_loop`` backend (same loss history, same
+             launch counters reset just before (40 ``sim_nn_forward`` and
+             40 ``sim_nn_update`` launches: the local step is the NN's
+             fused step); then the same run through the ``masked_loop``
+             backend (autograd's local step; same loss history, same
              ledger), the SVM, and Remark-1 adaptive Γ (kernel and
              ``masked_loop``, held against each other); and a small run
              on the card against the same run on the CPU.
@@ -364,6 +376,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -607,7 +620,9 @@ def phase_build() -> None:
     for name, match in (("fused_consensus_sgd", "fused_sgd_kernel"),
                         ("paged_decode", "paged_decode_kernel"),
                         ("ssd_scan", "ssd_prep_kernel"),
-                        ("ssd_scan", "ssd_scan_kernel")):
+                        ("ssd_scan", "ssd_scan_kernel"),
+                        ("sim_nn_step", "sim_nn_forward_kernel"),
+                        ("sim_nn_step", "sim_nn_update_kernel")):
         for kernel, regs, smem, spill in ptxas_entries(
                 reports.get(name, ""), match):
             log(f"[build] ptxas {kernel}: {regs} registers, {smem} B static "
@@ -890,6 +905,172 @@ def phase_fused_kernels() -> dict:
     return numbers
 
 
+SIM_NN_SHAPE = (125, 16, 784, 7840)   # (I, B, m, hidden) of the sim path
+# the sim step's kernels off the main shape: hidden not a multiple of the
+# 512-column tile, B padded to 4, 8 or 16, and B over the batch tile of 16
+# (two and three launches a call)
+SIM_NN_TEST_SHAPES = [(3, 5, 37, 1000), (2, 16, 50, 76), (2, 1, 300, 600),
+                      (4, 32, 20, 132), (3, 3, 129, 516), (2, 40, 30, 516)]
+SIM_LR = 2e-3
+
+
+def sim_nn_inputs(shape, seed):
+    """The sim step's kernel inputs on the card: the forward's (x, w1, b1,
+    w2, b2; the NN's init scales, 10 classes), a dH and every device live
+    but the second."""
+    import torch
+    I, B, m, hid = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*size, scale):
+        return torch.randn(size, generator=gen, device="cuda") * scale
+    fwd = (torch.rand((I, B, m), generator=gen, device="cuda"),
+           normal(I, m, hid, scale=(2.0 / m) ** 0.5),
+           normal(I, hid, scale=0.01), normal(I, hid, 10, scale=hid ** -0.5),
+           normal(I, 10, scale=0.01))
+    dh = normal(I, B, hid, scale=0.01)
+    live = torch.ones(I, dtype=torch.bool, device="cuda")
+    if I > 1:
+        live[1] = False
+    return fwd, dh, live
+
+
+def phase_sim_nn_kernels() -> dict:
+    """``sim_nn_forward`` and ``sim_nn_update`` against their plain
+    versions (f32; H and the logits to 1e-5, the update to the SGD
+    tolerance 1e-6; a dark device's rows of H zeros, its logits b2 and its
+    w1 bitwise as it was),
+    then timed at the sim path's ``(125, 16, 784, 7840)`` beside their
+    plain versions and a library yardstick the port never calls
+    (``torch.baddbmm``), kernel and yardstick in turns."""
+    import torch
+    from repro_torch.kernels.sim_nn_step import (
+        sim_nn_forward, sim_nn_forward_plain, sim_nn_update,
+        sim_nn_update_plain)
+    from repro_torch.models.simple import nn
+
+    reg = nn(784, 10).reg
+    worst = {"sim_nn_forward": 0.0, "sim_nn_update": 0.0}
+
+    def check(shape, seed):
+        fwd, dh, live = sim_nn_inputs(shape, seed)
+        x, w1 = fwd[:2]
+        for lv in (None, live):
+            h, logits = sim_nn_forward(*fwd, lv)
+            torch.cuda.synchronize()
+            plain = sim_nn_forward_plain(*fwd, lv)
+            for got, want in zip((h, logits), plain):
+                err = float((got - want).abs().max())
+                assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
+                    ("sim_nn_forward", shape, err)
+                worst["sim_nn_forward"] = max(worst["sim_nn_forward"], err)
+            if lv is not None and shape[0] > 1:
+                assert torch.equal(h[1], torch.zeros_like(h[1])), shape
+                assert torch.equal(logits[1], fwd[4][1].expand_as(
+                    logits[1])), shape
+            d = dh * (h > 0)
+            keep = w1.clone()
+            plain = w1.clone()
+            sim_nn_update_plain(plain, x, d, SIM_LR, reg, lv)
+            sim_nn_update(w1, x, d, SIM_LR, reg, lv)
+            torch.cuda.synchronize()
+            err = compare(w1, plain, "float32", ("sim_nn_update", shape))
+            worst["sim_nn_update"] = max(worst["sim_nn_update"], err)
+            if lv is not None and shape[0] > 1:
+                assert torch.equal(w1[1], keep[1]), shape
+            w1.copy_(keep)
+        log(f"[kernels] sim_nn {shape} f32 (dark device 1 and none): "
+            f"max_abs_err forward {worst['sim_nn_forward']:.3e}, update "
+            f"{worst['sim_nn_update']:.3e}")
+
+    for i, shape in enumerate(SIM_NN_TEST_SHAPES):
+        check(shape, seed=i)
+    check((1,) + SIM_NN_SHAPE[1:], seed=50)     # one device at full size
+
+    # the L2 term: at reg = eta = 0.5 it moves w1 by a quarter of itself,
+    # far past the tolerance, so an update that drops it cannot pass
+    for i, shape in enumerate(((3, 16, 40, 24), (2, 40, 30, 516))):
+        fwd, dh, _ = sim_nn_inputs(shape, seed=70 + i)
+        x, w1 = fwd[:2]
+        plain, no_l2 = w1.clone(), w1.clone()
+        sim_nn_update_plain(plain, x, dh, 0.5, 0.5)
+        sim_nn_update_plain(no_l2, x, dh, 0.5, 0.0)
+        sim_nn_update(w1, x, dh, 0.5, 0.5)
+        torch.cuda.synchronize()
+        err = compare(w1, plain, "float32", ("sim_nn_update reg", shape))
+        tol = SGD_TOL["float32"]
+        miss = float((w1 - no_l2).abs().max())
+        assert not torch.allclose(w1, no_l2, atol=tol, rtol=tol), \
+            (shape, miss)
+        log(f"[kernels] sim_nn_update {shape} at reg = eta = 0.5: "
+            f"max_abs_err {err:.3e} against the plain update, {miss:.3e} "
+            f"against it without the L2 term (tol {tol})")
+
+    I, B, m, hid = SIM_NN_SHAPE
+    fwd, dh, _ = sim_nn_inputs(SIM_NN_SHAPE, seed=99)
+    x, w1, b1 = fwd[:3]
+    h, logits = sim_nn_forward(*fwd)
+    torch.cuda.synchronize()
+    err_f = max(float((got - want).abs().max()) for got, want in
+                zip((h, logits), sim_nn_forward_plain(*fwd)))
+    assert err_f <= 1e-5 * (1 + float(h.abs().max())), err_f
+    dh = dh * (h > 0)
+    plain = w1.clone()
+    sim_nn_update_plain(plain, x, dh, SIM_LR, reg)
+    keep = w1.clone()
+    sim_nn_update(w1, x, dh, SIM_LR, reg)
+    torch.cuda.synchronize()
+    err_u = compare(w1, plain, "float32", "sim_nn_update main")
+    del plain
+    torch.cuda.empty_cache()
+    xT = x.transpose(1, 2)
+    b1r = b1[:, None, :]
+    beta, alpha = 1.0 - SIM_LR * reg, -SIM_LR
+    numbers = {}
+    w1_bytes = w1.numel() * 4
+    io = (x.numel() + dh.numel()) * 4
+    # the forward also reads w2 and b2 and writes the logits (its tiles'
+    # shares, summed in the wrapper: counted once)
+    small = sum(t.numel() for t in fwd[2:]) * 4 + logits.numel() * 4
+    for name, kernel, library, plain_fn, nbytes, flops, err in (
+            ("sim_nn_forward", lambda: sim_nn_forward(*fwd),
+             lambda: torch.baddbmm(b1r, x, w1),
+             lambda: sim_nn_forward_plain(*fwd),
+             w1_bytes + io + small, 2 * I * B * (m + 10) * hid, err_f),
+            ("sim_nn_update",
+             lambda: sim_nn_update(w1, x, dh, SIM_LR, reg),
+             lambda: keep.baddbmm_(xT, dh, beta=beta, alpha=alpha),
+             lambda: sim_nn_update_plain(keep, x, dh, SIM_LR, reg),
+             2 * w1_bytes + io, 2 * I * B * m * hid, err_u)):
+        for fn in (kernel, library):
+            cuda_ms(fn, iters=2)
+        order = ("kernel", "library", "library", "kernel", "kernel",
+                 "library")
+        calls = {"kernel": kernel, "library": library}
+        turns = [cuda_ms(calls[k], iters=10, warmup=1) for k in order]
+        ms = sum(t for t, k in zip(turns, order) if k == "kernel") / 3
+        library_ms = sum(t for t, k in zip(turns, order)
+                         if k == "library") / 3
+        plain_ms = cuda_ms(plain_fn, iters=3)
+        b_ms, b_by = bound(nbytes, flops)
+        w1_ms = (w1_bytes * (1 if name == "sim_nn_forward" else 2)
+                 / HBM_BYTES_PER_S * 1e3)
+        log(f"[kernels] {name} {SIM_NN_SHAPE} f32: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.baddbmm {library_ms:.4f} ms (in "
+            f"turns: {', '.join(f'{k} {t:.4f}' for k, t in zip(order, turns))}"
+            f" ms), bound {b_ms:.4f} ms ({b_by}: {nbytes} B at 3.35 TB/s; w1 "
+            f"alone {w1_ms:.4f} ms), kernel at {nbytes / ms / 1e6:.1f} GB/s "
+            f"({100 * b_ms / ms:.1f} % of the bound), max_abs_err {err:.3e}")
+        numbers[name] = {
+            "max_abs_err": err, "ms": ms, "ms_turns": turns,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "w1_bound_ms": w1_ms,
+            "max_abs_err_all_shapes": {"float32": max(worst[name], err)}}
+    del fwd, x, w1, b1, dh, h, logits, keep, xT, b1r
+    torch.cuda.empty_cache()
+    return numbers
+
+
 class NumpyDraws:
     """A draw source from one numpy generator: the same indices on any
     device, so a run on the card can be held against a CPU run."""
@@ -961,10 +1142,35 @@ def sim_ledger(tr) -> tuple:
     return (led.uplinks, led.d2d_msgs, led.d2d_rounds, led.local_steps)
 
 
+def sim_counters() -> dict:
+    """The sim path's kernels by name, whose launches the sim phases
+    count: ``consensus_mix`` and the two kernels of nn's local step."""
+    from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.kernels.sim_nn_step import sim_nn_forward, sim_nn_update
+    return {"consensus_mix": consensus_mix, "sim_nn_forward": sim_nn_forward,
+            "sim_nn_update": sim_nn_update}
+
+
+def reset_sim_launches() -> None:
+    for fn in sim_counters().values():
+        fn.launches = 0
+
+
+def sim_launches(steps: "int | None" = None) -> dict:
+    """The sim kernels' launches since the last reset; with ``steps``,
+    asserts that nn's step launched each of its kernels once a step."""
+    out = {k: fn.launches for k, fn in sim_counters().items()}
+    if steps is not None:
+        assert out["sim_nn_forward"] == out["sim_nn_update"] == steps, \
+            (steps, out)
+    return out
+
+
 def phase_slice(profile: bool = False) -> dict:
     """The sim path at the paper's size through ``consensus_mix``, held to
     ``masked_loop``, the SVM, adaptive Γ and the CPU. Returns the main
-    run's launches and its history and ledger."""
+    run's launches of the sim kernels (``sim_launches``) and its history
+    and ledger."""
     import torch
     from repro_torch.configs import TopologyConfig
     from repro_torch.core import TTHFTrainer
@@ -992,11 +1198,13 @@ def phase_slice(profile: bool = False) -> dict:
         _, _, wall0 = run(nn, algo(), run_steps=5, **kw)
         log(f"[slice] warm-up nn-7840 {kw}: 5 steps in {wall0:.3f} s")
 
-    # the main path: NN at full width, consensus through the kernel
+    # the main path: NN at full width, consensus through the kernel, the
+    # local step through the sim step's two kernels
     torch.cuda.reset_peak_memory_stats()
-    consensus_mix.launches = 0
+    reset_sim_launches()
     tr, hist, wall = run(nn, algo(), use_kernel=True)
-    launches = consensus_mix.launches
+    counts = sim_launches(steps)
+    launches = counts["consensus_mix"]
     peak = torch.cuda.max_memory_allocated()
     events = steps // tr.algo.consensus_every
     assert tr.backend == "pallas" and tr.device.type == "cuda"
@@ -1007,6 +1215,7 @@ def phase_slice(profile: bool = False) -> dict:
     log(f"[slice] nn-7840 kernel: {steps} steps in {wall:.3f} s = "
         f"{steps / wall:.3f} steps/s, loss {hist.global_loss}, acc "
         f"{hist.global_acc}, ledger {ledger(tr)}, launches {launches}, "
+        f"sim_nn_forward and sim_nn_update launches {steps} each, "
         f"max_memory_allocated {peak} B")
 
     # the same run through the masked_loop backend, timed in turns
@@ -1073,7 +1282,7 @@ def phase_slice(profile: bool = False) -> dict:
     if profile:
         profile_main_path(lambda: run(nn, algo(), use_kernel=True,
                                       run_steps=20)[2], "20 sim steps")
-    return {"launches": launches, "global_loss": hist.global_loss,
+    return {"launches": counts, "global_loss": hist.global_loss,
             "global_acc": hist.global_acc, "ledger": ledger(tr),
             "gamma_used": [g.tolist() for g in hist.gamma_used]}
 
@@ -1082,14 +1291,15 @@ NETSIM_SCENARIOS = ("markov_links", "device_churn", "stragglers",
                     "flash_crowd")
 
 
-def phase_slice_netsim(plain_run: dict, profile: bool = False) -> int:
+def phase_slice_netsim(plain_run: dict, profile: bool = False) -> dict:
     """The sim path at the paper's size under the four dynamic netsim
     scenarios, 60 steps each (flash_crowd's half of the fleet leaves at
     30 and returns at 50): each consensus event through ``consensus_mix``
     with the event's V, held to ``masked_loop`` on the card (loss rtol
     1e-4; gamma_used, active_devices and the ledger exactly); and the
     ``static`` scenario equal to ``phase_slice``'s run without one.
-    Returns the kernel runs' launches."""
+    Returns the kernel runs' launches of the sim kernels, each run's
+    counted from 0."""
     import torch
     from repro_torch.core import TTHFTrainer
     from repro_torch.kernels.consensus_mix import consensus_mix
@@ -1125,23 +1335,24 @@ def phase_slice_netsim(plain_run: dict, profile: bool = False) -> int:
         log(f"[slice-netsim] warm-up device_churn {kw}: 5 steps in "
             f"{wall0:.3f} s")
 
-    total = 0
+    total = Counter()
     events = steps // sim_algo().consensus_every
     for name in NETSIM_SCENARIOS:
         torch.cuda.reset_peak_memory_stats()
-        consensus_mix.launches = 0
+        reset_sim_launches()
         tr, hist, wall = run(name, use_kernel=True)
-        launches = consensus_mix.launches
+        counts = sim_launches(steps)
+        launches = counts["consensus_mix"]
         peak = torch.cuda.max_memory_allocated()
         assert tr.backend == "pallas" and tr.tvnet is not None
         assert np.isfinite(hist.global_loss).all(), (name, hist.global_loss)
         # one launch per parameter leaf per consensus event, whatever V
         assert launches == events * 4, (name, launches)
-        total += launches
+        total.update(counts)
         torch.cuda.reset_peak_memory_stats()
         tr2, hist2, wall2 = run(name, backend="masked_loop")
         peak2 = torch.cuda.max_memory_allocated()
-        assert consensus_mix.launches == launches
+        assert sim_launches() == counts      # masked_loop launches none
         np.testing.assert_allclose(hist2.global_loss, hist.global_loss,
                                    rtol=1e-4)
         assert [g.tolist() for g in hist2.gamma_used] == \
@@ -1165,7 +1376,7 @@ def phase_slice_netsim(plain_run: dict, profile: bool = False) -> int:
             profile_main_path(lambda: run(name, use_kernel=True,
                                           run_steps=20)[2],
                               "20 sim steps under device_churn")
-    return total
+    return dict(total)
 
 
 FOG_PRESETS = ("flat", "fog3", "fog4", "fog3_sampled")
@@ -1229,13 +1440,14 @@ def sim_equals_plain(tag, hist, tr, plain_run) -> None:
     assert sim_ledger(tr) == plain_run["ledger"], tag
 
 
-def phase_slice_fog(plain_run: dict) -> int:
+def phase_slice_fog(plain_run: dict) -> dict:
     """The sim path at the paper's size under the four fog presets, each
     on the static topology and under ``device_churn``, 80 steps (fog4's
     root fires at 80): each consensus event through ``consensus_mix``,
     each aggregation one composed (I, I) device matrix on every leaf,
     held to ``masked_loop``; ``flat`` for 40 steps equal to
-    ``phase_slice``'s run. Returns the kernel runs' launches."""
+    ``phase_slice``'s run. Returns the kernel runs' launches of the sim
+    kernels, each run's counted from 0."""
     import torch
     from repro_torch.hierarchy import aggregate, presets
     from repro_torch.kernels.consensus_mix import consensus_mix
@@ -1267,23 +1479,24 @@ def phase_slice_fog(plain_run: dict) -> int:
         log(f"[slice-fog] warm-up fog3 under device_churn {kw}: 20 steps "
             f"in {wall0:.3f} s")
 
-    total = 0
+    total = Counter()
     for name in FOG_PRESETS:
         for scenario in SIM_SCENARIOS:
             tag = f"{name}/{scenario or 'static'}"
             prog = program(name, scenario)
             torch.cuda.reset_peak_memory_stats()
-            consensus_mix.launches = 0
+            reset_sim_launches()
             tr, st, hist, wall, aggs, _ = sim_program_run(
                 setup, prog, steps, use_kernel=True)
-            launches = consensus_mix.launches
+            counts = sim_launches(steps)
+            launches = counts["consensus_mix"]
             peak = torch.cuda.max_memory_allocated()
             assert tr.backend == "pallas", tag
             assert np.isfinite(hist.global_loss).all(), (tag,
                                                          hist.global_loss)
             # one launch per parameter leaf per consensus event
             assert launches == events * 4, (tag, launches)
-            total += launches
+            total.update(counts)
             levels = tr.ledger.uplinks_by_level
             if name != "flat":
                 assert tr.tree is not None and 2 in levels, (tag, levels)
@@ -1308,7 +1521,7 @@ def phase_slice_fog(plain_run: dict) -> int:
                 setup, prog, steps, backend="masked_loop")
             peak2 = torch.cuda.max_memory_allocated()
             del st2
-            assert consensus_mix.launches == launches
+            assert sim_launches() == counts  # masked_loop launches none
             assert aggs2 == aggs, (tag, aggs, aggs2)
             sim_hold(tag, tr, hist, tr2, hist2)
             log(f"[slice-fog] {tag}: kernel {steps} steps in {wall:.3f} s = "
@@ -1320,10 +1533,10 @@ def phase_slice_fog(plain_run: dict) -> int:
                 f"{dict(levels)}, active_devices {hist.active_devices}, "
                 f"ledger {sim_ledger(tr)}{share}")
             torch.cuda.empty_cache()
-    return total
+    return dict(total)
 
 
-def phase_slice_control(plain_run: dict) -> int:
+def phase_slice_control(plain_run: dict) -> dict:
     """The sim path at the paper's size under the ``remark1`` and
     ``connectivity`` policies, each on the static topology and under
     ``device_churn``: Γ from the controller at each consensus event
@@ -1333,7 +1546,8 @@ def phase_slice_control(plain_run: dict) -> int:
     aggregation calendar and every decision's Γ, τ, safe and fallback
     exactly); the ``static`` policy for 40 steps equal to
     ``phase_slice``'s run. The runs take ``CONTROL_POLICIES``' steps.
-    Returns the kernel runs' launches."""
+    Returns the kernel runs' launches of the sim kernels, each run's
+    counted from 0."""
     import torch
     from repro_torch.configs.base import ControlConfig
     from repro_torch.control import get_policy
@@ -1379,7 +1593,7 @@ def phase_slice_control(plain_run: dict) -> int:
                 for d in decs]
 
     from repro_torch.core import TTHFTrainer
-    total = 0
+    total = Counter()
     for policy, steps in CONTROL_POLICIES.items():
         events = steps // sim_algo().consensus_every
         for scenario in SIM_SCENARIOS:
@@ -1391,11 +1605,11 @@ def phase_slice_control(plain_run: dict) -> int:
                 TTHFTrainer._observe_control_grads = timed
                 try:
                     torch.cuda.reset_peak_memory_stats()
-                    consensus_mix.launches = 0
+                    reset_sim_launches()
                     out = sim_program_run(setup, prog, steps, **kw)
                 finally:
                     TTHFTrainer._observe_control_grads = orig
-                runs.append(out + (consensus_mix.launches,
+                runs.append(out + (sim_launches(),
                                    torch.cuda.max_memory_allocated(),
                                    probes))
             (tr, st, hist, wall, aggs, decs, launches, peak, probes), \
@@ -1404,9 +1618,13 @@ def phase_slice_control(plain_run: dict) -> int:
             del st, st2
             assert np.isfinite(hist.global_loss).all(), (tag,
                                                          hist.global_loss)
-            assert launches == events * 4, (tag, launches)
-            assert launches2 == 0, (tag, launches2)
-            total += launches
+            # the kernel run: consensus_mix a leaf an event, nn's step a
+            # step; the masked_loop run launches neither
+            assert launches["consensus_mix"] == events * 4, (tag, launches)
+            assert launches["sim_nn_forward"] == \
+                launches["sim_nn_update"] == steps, (tag, launches)
+            assert not any(launches2.values()), (tag, launches2)
+            total.update(launches)
             ctl = tr._resolver.controller
             assert ctl is not None and ctl.counters()["fallbacks"] == 0, tag
             assert aggs2 == aggs, (tag, aggs, aggs2)
@@ -1426,8 +1644,8 @@ def phase_slice_control(plain_run: dict) -> int:
                          f"card peak above the fleet "
                          f"{max(p[1] for p in probes)} B")
             log(f"[slice-control] {tag}: kernel {steps} steps in {wall:.3f} "
-                f"s = {steps / wall:.3f} steps/s, consensus_mix launches "
-                f"{launches}, max_memory_allocated {peak} B; masked_loop "
+                f"s = {steps / wall:.3f} steps/s, launches {launches}, "
+                f"max_memory_allocated {peak} B; masked_loop "
                 f"{steps / wall2:.3f} steps/s, max_memory_allocated {peak2} "
                 f"B; loss {hist.global_loss} (masked_loop within rtol "
                 f"1e-4), aggregations at {aggs}, tau_next {taus}, Γ per "
@@ -1436,7 +1654,7 @@ def phase_slice_control(plain_run: dict) -> int:
                 f"active_devices {hist.active_devices}, ledger "
                 f"{sim_ledger(tr)}{probe}")
             torch.cuda.empty_cache()
-    return total
+    return dict(total)
 
 
 def scale_forms_programs() -> dict:
@@ -3926,7 +4144,6 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import TTHFTrainer, theory
-    from repro_torch.kernels.consensus_mix import consensus_mix
     from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.launch import serve as serve_cli
@@ -3980,9 +4197,9 @@ def phase_obs(slice_run: dict, scale_bare: dict, serve_bare: dict) -> dict:
         assert sim_ledger(tr) == sim_ledger(tr_a), tag
 
     d = obs_dir("sim")
-    consensus_mix.launches = 0
+    reset_sim_launches()
     tr, st, hist, wall = sim(make_obs(str(d), run_name="train-sim"))
-    launches["consensus_mix"] = consensus_mix.launches
+    launches.update(sim_launches(steps))
     assert launches["consensus_mix"] == 32, launches
     hold_sim("obs sim", tr, st, hist)
     rounds = obs_records(d, "round")
@@ -4893,7 +5110,9 @@ def phases_arg(argv) -> "list | None":
 # the phases ``--phases`` can run alone
 PARTIAL_PHASES = {
     "kernels": lambda: (phase_kernels(), phase_fused_kernels()),
+    "sim-nn": phase_sim_nn_kernels,
     "paged-kernel": phase_paged_kernel,
+    "slice-netsim": phase_slice_netsim,
     "slice-fog": phase_slice_fog,
     "slice-control": phase_slice_control,
     "scale": phase_scale,
@@ -4956,18 +5175,22 @@ def main() -> int:
         log(f"[partial] phases {only} passed; no result line")
         return 0
     numbers = {"consensus_mix": timed("kernels", phase_kernels),
-               **timed("fused kernels", phase_fused_kernels)}
+               **timed("fused kernels", phase_fused_kernels),
+               **timed("sim-nn kernels", phase_sim_nn_kernels)}
     numbers["paged_decode"] = timed("paged kernel", phase_paged_kernel)
     numbers["ssd_scan"] = timed("ssd kernel", phase_ssd_kernel)
-    # each path's launches, its counters reset just before it
+    # each path's launches, its counters reset just before each of its
+    # kernel runs: consensus_mix and nn's step on the sim paths
     slice_run = timed("slice", phase_slice, profile=profile)
-    by_path = {"consensus_mix": {
-        "slice": slice_run["launches"],
-        "slice-netsim": timed("slice-netsim", phase_slice_netsim, slice_run,
-                              profile=profile),
-        "slice-fog": timed("slice-fog", phase_slice_fog, slice_run),
-        "slice-control": timed("slice-control", phase_slice_control,
-                               slice_run)}}
+    by_path = {k: {"slice": n} for k, n in slice_run["launches"].items()}
+    for name, counts in (
+            ("slice-netsim", timed("slice-netsim", phase_slice_netsim,
+                                   slice_run, profile=profile)),
+            ("slice-fog", timed("slice-fog", phase_slice_fog, slice_run)),
+            ("slice-control", timed("slice-control", phase_slice_control,
+                                    slice_run))):
+        for k, n in counts.items():
+            by_path[k][name] = n
     scale_launches, scale_bare = timed("scale", phase_scale, profile=profile)
     by_path["fused_sgd"] = {"scale": scale_launches["fused_sgd"]}
     by_path["fused_consensus_sgd"] = {
@@ -5014,7 +5237,9 @@ def main() -> int:
                     "src/repro/kernels/fused_consensus_sgd.py:52",
                 "fused_sgd": "src/repro/kernels/fused_sgd.py:37",
                 "paged_decode": "src/repro/kernels/paged_attn.py:76",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:75"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:75",
+                # XLA's vmap(grad(loss)) in the reference: no TPU kernel
+                "sim_nn_forward": None, "sim_nn_update": None}
     # fused_sgd's streaming kernel shares fused_consensus_sgd.cu (and its
     # SGD step) with fused_consensus_sgd
     sources = {"consensus_mix": "src/repro_torch/csrc/consensus_mix.cu",
@@ -5022,7 +5247,9 @@ def main() -> int:
                    "src/repro_torch/csrc/fused_consensus_sgd.cu",
                "fused_sgd": "src/repro_torch/csrc/fused_consensus_sgd.cu",
                "paged_decode": "src/repro_torch/csrc/paged_decode.cu",
-               "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+               "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+               "sim_nn_forward": "src/repro_torch/csrc/sim_nn_step.cu",
+               "sim_nn_update": "src/repro_torch/csrc/sim_nn_step.cu"}
     kernels = []
     for name, nums in numbers.items():
         entry = {

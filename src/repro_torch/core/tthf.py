@@ -3,8 +3,11 @@ tthf.py``: the static topology, netsim dynamics, the fog hierarchy and the
 control plane.
 
 The device fleet is stacked: every parameter leaf carries a leading
-device axis ``I = N * s``. Local SGD runs all devices at once (batched
-products, one autograd call, :meth:`SimModel.grads`); consensus
+device axis ``I = N * s``. Local SGD runs all devices at once: with
+``use_kernel=True`` through the model's fused ``step`` where it has one
+(``nn``: two hand-written passes over the fleet's w1, :mod:`repro_torch.
+kernels.sim_nn_step`), otherwise batched products and one autograd call,
+:meth:`SimModel.grads`, then the update in place; consensus
 reshapes each leaf to ``(N, s, M)`` and applies the block-diagonal
 mixing (:mod:`repro_torch.core.mixing`; ``use_kernel=True`` selects the
 CUDA ``consensus_mix`` kernel); aggregations implement the
@@ -32,7 +35,8 @@ of its own (``draws.probe_minibatch``).
 
 ``run(obs=...)`` takes an observability sink (:mod:`repro_torch.obs`):
 spans of the two timescales, the layer spans (device time of each
-``local_step``, of the consensus event, the aggregation and the
+``local_step``, with ``fused`` saying whether it took the model's fused
+step, of the consensus event, the aggregation and the
 ``eval``; the host's ``netsim.snapshot`` builds) and, with a trace dir's
 telemetry, per round the measured divergence beside the theory's bounds
 (the ``round`` record), the comms attribution (``comm``) and, at
@@ -124,6 +128,8 @@ class TTHFTrainer:
         self.net: Network = build_network(topo_cfg)
         self.batch_size = batch_size
         self.use_kernel = use_kernel
+        if self._fused_step() and model.step_check is not None:
+            model.step_check(self.device)
         # ``dynamics``/``hierarchy`` are sugar for a round program; a
         # static (or absent) dynamics config resolves to the static path
         if program is None:
@@ -196,16 +202,25 @@ class TTHFTrainer:
         device takes no step: its rows of the update are zeroed (a fill,
         so a non-finite gradient there cannot leak), leaving its
         parameters bitwise as they were, without a second copy of the
-        fleet."""
+        fleet. Under ``use_kernel`` a model with a fused ``step`` takes
+        it (a dark device's w1 is not even loaded); otherwise autograd's
+        gradients and the update here."""
         rows = torch.arange(idx.shape[0], device=self.device)[:, None]
-        grads = self.model.grads(params, self.x[rows, idx],
-                                 self.y[rows, idx])
+        x, y = self.x[rows, idx], self.y[rows, idx]
+        if self._fused_step():
+            with torch.no_grad():
+                self.model.step(params, x, y, eta_t, dark)
+            return
+        grads = self.model.grads(params, x, y)
         with torch.no_grad():
             for k, g in grads.items():
                 g.mul_(eta_t)
                 if dark is not None:
                     g.masked_fill_(dark.view((-1,) + (1,) * (g.ndim - 1)), 0)
                 params[k].sub_(g)
+
+    def _fused_step(self) -> bool:
+        return self.use_kernel and self.model.step is not None
 
     def _aggregate(self, params: dict, draws, full: bool):
         if full:
@@ -379,7 +394,8 @@ class TTHFTrainer:
                 live += int(up.sum())
                 if not up.all():
                     dark = torch.as_tensor(~up, device=self.device)
-            with obs.device_span("local_step", self.device, t=u):
+            with obs.device_span("local_step", self.device, t=u,
+                                 fused=self._fused_step()):
                 self._local_step(st.params, idx.to(self.device),
                                  float(self.eta(u - 1)), dark)
         return live

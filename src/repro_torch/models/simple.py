@@ -12,16 +12,25 @@ and ``y (I, B)``, and ``loss`` returns the (I,) per-device losses. The
 reference's ``vmap(grad(loss))`` becomes :meth:`SimModel.grads`: one
 autograd call on the summed per-device losses, whose gradient with
 respect to device i's leaves is exactly the gradient of device i's loss.
+
+``nn`` also has a fused ``step``: one SGD iteration of every device in
+place from the closed-form gradient, its two passes over the fleet's w1
+through the hand-written kernels of :mod:`repro_torch.kernels.
+sim_nn_step` (their plain versions on the CPU). The trainer takes it
+under ``use_kernel=True``, after ``step_check`` has said that the
+kernels take the width on its device; ``svm`` has none (``step`` is
+None).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.sim_nn_step import sim_nn_step, sim_nn_step_check
 from repro_torch.models.common import params_from_jax
 
 
@@ -32,6 +41,12 @@ class SimModel:
     predict: Callable       # (params, x) -> (I, B, C) scores
     reg: float
     name: str
+    # (params, x, y, eta, dark) -> None: one SGD iteration of every device
+    # in place, dark (I,) bool or None; None where the model has no fused
+    # step
+    step: Optional[Callable] = None
+    # (device) -> None: raises where ``step`` cannot run on the device
+    step_check: Optional[Callable] = None
 
     def accuracy(self, params: dict, x: torch.Tensor,
                  y: torch.Tensor) -> torch.Tensor:
@@ -107,7 +122,14 @@ def nn(dim: int, num_classes: int, hidden: int = 7840,
                           + (params["w2"] ** 2).sum(dim=(1, 2)))
         return nll + l2
 
-    return SimModel(init, predict=predict, loss=loss, reg=reg, name="nn")
+    def step(params, x, y, eta, dark=None):
+        sim_nn_step(params, x, y, eta, reg, dark)
+
+    def step_check(device):
+        sim_nn_step_check(hidden, device)
+
+    return SimModel(init, predict=predict, loss=loss, reg=reg, name="nn",
+                    step=step, step_check=step_check)
 
 
 def make_sim_model(name: str, dim: int, num_classes: int,

@@ -31,6 +31,10 @@ from repro_torch.kernels.consensus_mix import (
 from repro_torch.kernels.fused_consensus_sgd import (
     fused_consensus_sgd, fused_consensus_sgd_plain)
 from repro_torch.kernels.fused_sgd import fused_sgd, fused_sgd_plain, out_like
+from repro_torch.kernels import runtime
+from repro_torch.kernels.sim_nn_step import (
+    BATCH_TILE, sim_nn_forward, sim_nn_forward_plain, sim_nn_step,
+    sim_nn_step_check, sim_nn_step_plain, sim_nn_update, sim_nn_update_plain)
 from repro_torch.kernels.paged_decode import (
     CHUNK_BYTES, MAX_CHUNK, MAX_GROUP, MAX_HEAD_DIM, paged_decode,
     paged_decode_plain, split_plan)
@@ -469,11 +473,181 @@ def test_build_names_the_sources():
     # fused_sgd's streaming kernel lives in fused_consensus_sgd.cu, beside
     # the kernel whose SGD step it shares
     assert build.sources() == ["consensus_mix", "fused_consensus_sgd",
-                               "paged_decode", "ssd_scan"]
+                               "paged_decode", "sim_nn_step", "ssd_scan"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# the sim step of the one-hidden-layer network (kernels/sim_nn_step.py)
+# ---------------------------------------------------------------------------
+
+DARK = {"none": [], "some": [1, 4], "all": list(range(6))}
+
+
+def _nn_fleet(I, B, m, hid, device="cpu", seed=0, dark=()):
+    """An ``nn`` model, a fleet of I devices whose leaves differ, one
+    minibatch (x, y) and the dark mask (None for no dark device)."""
+    from repro_torch.models import make_sim_model
+    model = make_sim_model("nn", m, 10, hid)
+    gen = torch.Generator().manual_seed(seed)
+    w0 = model.init(gen, "cpu")
+    params = {k: (v.expand((I,) + tuple(v.shape))
+                  + 0.02 * torch.randn((I,) + tuple(v.shape), generator=gen))
+              .contiguous().to(device) for k, v in sorted(w0.items())}
+    x = torch.randn((I, B, m), generator=gen).to(device)
+    y = torch.randint(0, 10, (I, B), generator=gen).to(device)
+    mask = None
+    if dark:
+        mask = torch.zeros(I, dtype=torch.bool)
+        mask[list(dark)] = True
+        mask = mask.to(device)
+    return model, params, x, y, mask
+
+
+def _autograd_step(model, params, x, y, eta, dark):
+    """The trainer's autograd path: ``SimModel.grads``, then the update."""
+    grads = model.grads(params, x, y)
+    with torch.no_grad():
+        for k, g in grads.items():
+            g.mul_(eta)
+            if dark is not None:
+                g.masked_fill_(dark.view((-1,) + (1,) * (g.ndim - 1)), 0)
+            params[k].sub_(g)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("dark", sorted(DARK))
+def test_sim_nn_step_plain_matches_autograd(B, dark):
+    """The closed-form step against autograd's gradients and the
+    trainer's update, to rtol 1e-5; the dark devices bitwise unchanged."""
+    model, params, x, y, mask = _nn_fleet(6, B, 40, 24, dark=DARK[dark])
+    before = {k: v.clone() for k, v in params.items()}
+    got = {k: v.clone() for k, v in params.items()}
+    _autograd_step(model, params, x, y, 0.05, mask)
+    sim_nn_step_plain(got, x, y, 0.05, model.reg, mask)
+    for k in params:
+        torch.testing.assert_close(got[k], params[k], rtol=1e-5, atol=1e-7)
+        for i in DARK[dark]:
+            assert torch.equal(got[k][i], before[k][i])
+        if dark != "all":
+            assert not torch.equal(got[k], before[k])
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("step", [sim_nn_step_plain, sim_nn_step])
+def test_sim_nn_step_dark_device_holds_through_a_non_finite_minibatch(
+        bad, step):
+    """A non-finite value in a dark device's minibatch cannot reach its
+    parameters (or anyone else's): it is left bitwise as it was."""
+    model, params, x, y, mask = _nn_fleet(6, 8, 40, 24, dark=[3])
+    x[3, 2, 5] = bad
+    before = {k: v.clone() for k, v in params.items()}
+    step(params, x, y, 0.05, model.reg, mask)
+    for k, v in params.items():
+        assert torch.equal(v[3], before[k][3])
+        assert torch.isfinite(v).all()
+        assert not torch.equal(v[4], before[k][4])
+
+
+def test_sim_nn_cpu_tensors_take_the_plain_version():
+    model, params, x, y, mask = _nn_fleet(6, 5, 40, 30, dark=[2])
+    live = ~mask
+    launches = (sim_nn_forward.launches, sim_nn_update.launches)
+    leaves = (x, params["w1"], params["b1"], params["w2"], params["b2"])
+    h, logits = sim_nn_forward(*leaves, live)
+    plain_h, plain_logits = sim_nn_forward_plain(*leaves, live)
+    assert torch.equal(h, plain_h) and torch.equal(logits, plain_logits)
+    assert torch.equal(h[2], torch.zeros_like(h[2]))
+    assert torch.equal(logits[2], params["b2"][2].expand(5, 10))
+    dh = torch.randn_like(h)
+    w1 = params["w1"].clone()
+    sim_nn_update(params["w1"], x, dh, 0.05, model.reg, live)
+    sim_nn_update_plain(w1, x, dh, 0.05, model.reg, live)
+    assert torch.equal(params["w1"], w1)
+    got = {k: v.clone() for k, v in params.items()}
+    sim_nn_step(params, x, y, 0.05, model.reg, mask)
+    sim_nn_step_plain(got, x, y, 0.05, model.reg, mask)
+    for k in params:
+        assert torch.equal(params[k], got[k])
+    assert (sim_nn_forward.launches, sim_nn_update.launches) == launches
+    # the model's fused step is this one
+    again = {k: v.clone() for k, v in got.items()}
+    model.step(got, x, y, 0.05, mask)
+    sim_nn_step(again, x, y, 0.05, model.reg, mask)
+    for k in got:
+        assert torch.equal(got[k], again[k])
+
+
+def test_sim_nn_wrappers_refuse_bad_inputs():
+    _, params, x, y, _ = _nn_fleet(3, 4, 20, 16)
+    w1, b1, w2, b2 = (params[k] for k in ("w1", "b1", "w2", "b2"))
+    with pytest.raises(TypeError, match="float32"):
+        sim_nn_forward(x.double(), w1.double(), b1.double(), w2, b2)
+    with pytest.raises(ValueError, match="w1 must be"):
+        sim_nn_forward(x, w1[:, :10], b1, w2, b2)
+    with pytest.raises(ValueError, match="b1 must be"):
+        sim_nn_forward(x, w1, b1[:, :8], w2, b2)
+    with pytest.raises(ValueError, match="w2 must be"):
+        sim_nn_forward(x, w1, b1, w2[:, :8], b2)
+    with pytest.raises(ValueError, match="dh must be"):
+        sim_nn_update(w1, x, torch.zeros((3, 5, 16)), 0.1, 1e-4)
+    with pytest.raises(ValueError, match="live"):
+        sim_nn_forward(x, w1, b1, w2, b2, torch.ones(3))
+    assert BATCH_TILE == 16
+
+
+@pytest.mark.parametrize("hidden,refused", [(30, True), (64, False),
+                                            (7840, False)])
+def test_sim_nn_step_check_refuses_what_the_kernels_cannot_run(hidden,
+                                                               refused):
+    """On the card the kernels take a hidden width that is a multiple of 4;
+    the CPU's plain versions take any. The check says so before a run."""
+    from repro_torch.models import make_sim_model
+    model = make_sim_model("nn", 784, 10, hidden)
+    for check in (lambda d: sim_nn_step_check(hidden, d), model.step_check):
+        check("cpu")
+        if refused:
+            with pytest.raises(ValueError, match="multiple of 4"):
+                check("cuda")
+        else:
+            check("cuda")
+    assert make_sim_model("svm", 784, 10).step_check is None
+
+
+@pytest.mark.parametrize("B", [16, 40])
+def test_sim_nn_wrappers_on_fake_tensors_charge_their_work(B):
+    """No launch; the work charged, w1's bytes once a batch tile of 16
+    (the forward) and twice (the update)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    I, m, hid, C = 3, 40, 24, 10
+    tiles = -(-B // BATCH_TILE)
+    with FakeTensorMode():
+        x = torch.empty((I, B, m))
+        w1 = torch.empty((I, m, hid))
+        b1 = torch.empty((I, hid))
+        w2 = torch.empty((I, hid, C))
+        b2 = torch.empty((I, C))
+    charges = []
+    launches = (sim_nn_forward.launches, sim_nn_update.launches)
+    runtime.LISTENERS.append(lambda *c: charges.append(c))
+    try:
+        h, logits = sim_nn_forward(x, w1, b1, w2, b2)
+        sim_nn_update(w1, x, h, 0.1, 1e-4)
+    finally:
+        runtime.LISTENERS.pop()
+    assert tuple(h.shape) == (I, B, hid) and runtime.is_fake(h)
+    assert tuple(logits.shape) == (I, B, C) and runtime.is_fake(logits)
+    assert (sim_nn_forward.launches, sim_nn_update.launches) == launches
+    w1_bytes = I * m * hid * 4
+    assert charges == [
+        ("sim_nn_forward", 2 * I * B * (m + C) * hid,
+         (I * B * m + I * hid + I * hid * C + I * C + I * B * hid
+          + I * B * C) * 4 + tiles * w1_bytes),
+        ("sim_nn_update", 2 * I * B * m * hid + 4 * tiles * I * m * hid,
+         (I * B * m + I * B * hid) * 4 + 2 * tiles * w1_bytes)]
 
 
 @pytest.fixture
@@ -775,3 +949,131 @@ def test_ssd_scan_refuses_what_it_cannot_run(cuda_device):
     flat = torch.zeros(2 * 64 * 16 + 1, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
         ssd_scan(flat[1:].view(2, 64, 16), dt, loga, B, C, chunk=16)
+
+
+# the sim step's kernels: (I, B, m, hidden) with hidden not a multiple of
+# the 512-column tile, B padded to 4, 8 or 16 (5, 3, 1), B over the batch
+# tile of 16 (32 and 40: two and three launches a call), and one device of
+# the main path's shape
+SIM_NN_SHAPES = [(3, 5, 37, 1000), (2, 16, 50, 76), (2, 1, 300, 600),
+                 (4, 32, 20, 132), (3, 3, 129, 516), (2, 40, 30, 516),
+                 (1, 16, 784, 7840)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SIM_NN_SHAPES)
+@pytest.mark.parametrize("dark", ["none", "some"])
+def test_sim_nn_kernels_on_card(cuda_device, shape, dark):
+    """Each kernel against its plain version (float32, no TF32: the
+    forward's, the logits' and the B-term sums differ in order only), the
+    dark devices' rows of H zeros, their logits b2 and their w1 bitwise as
+    it was; then the whole step against its plain version."""
+    I, B, m, hid = shape
+    off = [1] if dark == "some" and I > 1 else []
+    model, params, x, y, mask = _nn_fleet(I, B, m, hid, cuda_device,
+                                          seed=sum(shape), dark=off)
+    live = None if mask is None else ~mask
+    w1 = params["w1"]
+    leaves = (x, w1, params["b1"], params["w2"], params["b2"])
+    tiles = -(-B // BATCH_TILE)
+    before = sim_nn_forward.launches
+    h, logits = sim_nn_forward(*leaves, live)
+    torch.cuda.synchronize()
+    assert sim_nn_forward.launches == before + tiles
+    plain_h, plain_logits = sim_nn_forward_plain(*leaves, live)
+    torch.testing.assert_close(h, plain_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logits, plain_logits, rtol=1e-5, atol=1e-5)
+    for i in off:
+        assert torch.equal(h[i], torch.zeros_like(h[i]))
+        assert torch.equal(logits[i], params["b2"][i].expand(B, 10))
+    dh = torch.randn(h.shape, generator=torch.Generator().manual_seed(I)
+                     ).to(cuda_device) * (h > 0)
+    plain = w1.clone()
+    sim_nn_update_plain(plain, x, dh, 0.05, model.reg, live)
+    keep = w1.clone()
+    before = sim_nn_update.launches
+    sim_nn_update(w1, x, dh, 0.05, model.reg, live)
+    torch.cuda.synchronize()
+    assert sim_nn_update.launches == before + tiles
+    torch.testing.assert_close(w1, plain, rtol=SGD_TOL[torch.float32],
+                               atol=SGD_TOL[torch.float32])
+    for i in off:
+        assert torch.equal(w1[i], keep[i])
+    # the whole step: the forward's order of summation (up to 5.5e-6 of
+    # H at the main shape) reaches w2's update through layer 2, so the
+    # leaves are held to the forward's 1e-5
+    got = {k: v.clone() for k, v in params.items()}
+    sim_nn_step(params, x, y, 0.05, model.reg, mask)
+    sim_nn_step_plain(got, x, y, 0.05, model.reg, mask)
+    torch.cuda.synchronize()
+    for k in params:
+        torch.testing.assert_close(params[k], got[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 40, 24), (2, 40, 30, 516)])
+def test_sim_nn_update_applies_the_l2_term_on_card(cuda_device, shape):
+    """At a large reg and eta the L2 term moves w1 far beyond the update's
+    tolerance: the kernel matches the plain update with it and misses the
+    plain update without it, so a kernel that drops ``reg * w1`` fails
+    (with B over the batch tile, the term is taken once, not a tile)."""
+    I, B, m, hid = shape
+    _, params, x, _, _ = _nn_fleet(I, B, m, hid, cuda_device, seed=B)
+    w1 = params["w1"]
+    dh = torch.randn((I, B, hid), generator=torch.Generator().manual_seed(3)
+                     ).to(cuda_device) * 0.01
+    eta, reg = 0.5, 0.5
+    plain, no_l2 = w1.clone(), w1.clone()
+    sim_nn_update_plain(plain, x, dh, eta, reg)
+    sim_nn_update_plain(no_l2, x, dh, eta, 0.0)
+    sim_nn_update(w1, x, dh, eta, reg)
+    torch.cuda.synchronize()
+    tol = SGD_TOL[torch.float32]
+    torch.testing.assert_close(w1, plain, rtol=tol, atol=tol)
+    assert not torch.allclose(w1, no_l2, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_sim_nn_kernels_refuse_what_they_cannot_run(cuda_device):
+    _, p, x, y, _ = _nn_fleet(2, 4, 20, 30, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sim_nn_forward(x, p["w1"], p["b1"], p["w2"], p["b2"])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sim_nn_update(p["w1"], x, torch.zeros((2, 4, 30), device=x.device),
+                      0.1, 1e-4)
+    _, p, x, y, _ = _nn_fleet(2, 4, 20, 16, cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(2 * 20 * 16 + 1, device=x.device)
+        sim_nn_forward(x, flat[1:].view(2, 20, 16), p["b1"], p["w2"],
+                       p["b2"])
+    with pytest.raises(ValueError, match="contiguous"):
+        sim_nn_forward(x, p["w1"].transpose(1, 2).contiguous()
+                       .transpose(1, 2), p["b1"], p["w2"], p["b2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["static", "device_churn"])
+def test_sim_nn_launches_over_a_sim_run_on_card(cuda_device, scenario):
+    """A 20-step sim run of ``nn`` under ``use_kernel=True`` launches each
+    of the two kernels once a step, dark devices or not; ``svm`` none."""
+    from repro_torch.configs import TopologyConfig, TTHFConfig
+    from repro_torch.core import TTHFTrainer
+    from repro_torch.data import fashion_synth, partition_noniid_labels
+    from repro_torch.models import make_sim_model
+    from repro_torch.netsim import scenarios
+    xs, ys = fashion_synth(num_points=2000, seed=1)
+    data = partition_noniid_labels(xs, ys, num_devices=25, seed=1)
+    topo = TopologyConfig(num_devices=25, num_clusters=5, seed=1)
+    algo = TTHFConfig(tau=10, consensus_every=5, gamma_d2d=2,
+                      constant_lr=2e-3)
+    dyn = None if scenario == "static" else scenarios.get(scenario, seed=1)
+    for name, per_step in (("nn", 1), ("svm", 0)):
+        tr = TTHFTrainer(make_sim_model(name, 784, 10, 64), data, topo,
+                         algo, batch_size=8, use_kernel=True, dynamics=dyn,
+                         device=cuda_device)
+        sim_nn_forward.launches = sim_nn_update.launches = 0
+        _, hist = tr.run(steps=20, seed=0, eval_every=10)
+        torch.cuda.synchronize()
+        assert np.isfinite(hist.global_loss).all()
+        assert sim_nn_forward.launches == sim_nn_update.launches \
+            == 20 * per_step

@@ -79,3 +79,29 @@ def test_init_and_carried_weights(name):
         {k: v.shape for k, v in w0.items()}
     with pytest.raises(ValueError):
         simple.make_sim_model("cnn", 49, 10)
+
+
+@pytest.mark.parametrize("dark", [None, [2]])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nn_fused_step_takes_the_reference_gradient(seed, dark):
+    """``nn``'s fused step (its plain versions on the CPU) moves every
+    live device by -eta times the reference's ``vmap(grad(loss))`` and
+    leaves a dark device bitwise as it was; ``svm`` has no fused step."""
+    jm, pm, params, x, y = _fleet("nn", seed=seed)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    ref_grad = jax.vmap(jax.grad(jm.loss))(jp, jnp.asarray(x),
+                                           jnp.asarray(y))
+    tp = simple.params_from_jax(params, "cpu")
+    mask = None
+    if dark is not None:
+        mask = torch.zeros(x.shape[0], dtype=torch.bool)
+        mask[dark] = True
+    eta = 0.05
+    pm.step(tp, torch.from_numpy(x), torch.from_numpy(y).long(), eta, mask)
+    for k in params:
+        want = params[k] - np.float32(eta) * np.asarray(ref_grad[k])
+        if dark is not None:
+            want[dark] = params[k][dark]
+            assert np.array_equal(tp[k].numpy()[dark], params[k][dark])
+        np.testing.assert_allclose(tp[k].numpy(), want, **TOL)
+    assert simple.make_sim_model("svm", 49, 10).step is None

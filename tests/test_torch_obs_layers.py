@@ -154,19 +154,38 @@ def test_spans_only_sink_writes_nothing(tmp_path, monkeypatch):
 _STEPS, _TAU, _CE, _EVAL = 8, 4, 2, 4
 
 
-def _sim(dynamics):
+def _sim(dynamics, model="svm", use_kernel=True):
     rng = np.random.default_rng(0)
     x = rng.normal(size=(8, 40, 784)).astype(np.float32)
     y = rng.integers(0, 10, size=(8, 40))
     data = FederatedDataset(x, y, np.full(8, 40, np.int32), 10)
     tr = TTHFTrainer(
-        make_sim_model("svm", 784, 10), data,
+        make_sim_model(model, 784, 10, 16), data,
         TopologyConfig(num_devices=8, num_clusters=2, graph="geometric",
                        seed=0),
         TTHFConfig(tau=_TAU, consensus_every=_CE, gamma_d2d=2,
                    constant_lr=0.01),
-        batch_size=8, use_kernel=True, dynamics=dynamics, device="cpu")
+        batch_size=8, use_kernel=use_kernel, dynamics=dynamics,
+        device="cpu")
     return tr, tr.init(0)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("scenario", ["static", "device_churn"])
+def test_local_step_spans_say_whether_the_step_was_fused(scenario,
+                                                         use_kernel):
+    """``nn`` under ``use_kernel=True`` takes its fused step and every
+    ``local_step`` span says so (``fused=True``); without the kernels
+    every one says ``fused=False``."""
+    dyn = None if scenario == "static" else DynamicsConfig(
+        name="device_churn", p_device_drop=0.2, p_device_return=0.3,
+        seed=1)
+    tr, st = _sim(dyn, "nn", use_kernel)
+    with Observability() as obs:
+        tr.run(_STEPS, eval_every=_EVAL, state=st, obs=obs)
+    steps = [s for s in obs.spans() if s["name"] == "local_step"]
+    assert len(steps) == _STEPS
+    assert {s["args"]["fused"] for s in steps} == {use_kernel}
 
 
 @pytest.mark.parametrize("scenario", ["static", "device_churn"])
@@ -206,6 +225,9 @@ def test_spans_only_sink_on_the_sim_trainer(scenario, tmp_path,
             assert s["dev_start_ns"] == s["start_ns"]
     assert sorted(s["args"]["t"] for s in spans
                   if s["name"] == "local_step") == list(range(1, _STEPS + 1))
+    # the svm has no fused step: every local step ran autograd
+    assert {s["args"]["fused"] for s in spans
+            if s["name"] == "local_step"} == {False}
     # the layer copies of consensus_event / aggregation sit inside the
     # reference's spans of the same name
     for name in ("consensus_event", "aggregation"):

@@ -27,12 +27,16 @@ from repro.core import TTHFTrainer as JTTHFTrainer
 from repro.core import make_baseline_config as j_baseline
 from repro.data import fashion_synth, partition_noniid_labels
 from repro.models import make_sim_model as j_make_sim_model
+from repro.netsim import scenarios as j_scenarios
 
 from repro_torch.configs import TopologyConfig, TTHFConfig
 from repro_torch.core import TTHFTrainer, make_baseline_config
 from repro_torch.core.topology import build_network
+from repro_torch.kernels.sim_nn_step import sim_nn_forward, sim_nn_update
 from repro_torch.launch import train as train_cli
 from repro_torch.models import make_sim_model, params_from_jax
+from repro_torch.models.simple import SimModel
+from repro_torch.netsim import scenarios
 from repro_torch.rounds import RoundProgram
 from repro_torch.configs.base import HierarchyConfig
 
@@ -128,6 +132,101 @@ def test_trainer_matches_reference(setup, algo, use_kernel):
         assert getattr(tr.ledger, name) == getattr(jtr.ledger, name), name
     assert tr.model_dim == jtr.model_dim
     assert st.t == SETUPS[setup]["steps"]
+
+
+def _counted_grads(monkeypatch):
+    """Count the autograd calls (``SimModel.grads``)."""
+    calls = []
+    real = SimModel.grads
+
+    def grads(self, *a, **k):
+        calls.append(None)
+        return real(self, *a, **k)
+    monkeypatch.setattr(SimModel, "grads", grads)
+    return calls
+
+
+@pytest.mark.parametrize("scenario", ["static", "device_churn"])
+def test_nn_fused_step_matches_autograd_and_reference(scenario, monkeypatch):
+    """``nn`` under ``use_kernel=True`` takes the model's fused step (the
+    closed-form gradient; its plain versions on the CPU) and no autograd
+    call; it matches the port's autograd path and the reference's run,
+    static and under device churn, at the tolerances above."""
+    cfg, data, topo = _setup("geo_nn")
+    algo = _algo(TTHFConfig, make_baseline_config, "tthf")
+    dyn = None if scenario == "static" else scenarios.get(scenario, seed=1)
+    jtr = JTTHFTrainer(
+        j_make_sim_model("nn", 784, 10, cfg["hidden"]), data,
+        JTopologyConfig(**topo), _algo(JTTHFConfig, j_baseline, "tthf"),
+        batch_size=cfg["batch"],
+        dynamics=None if dyn is None else j_scenarios.get(scenario, seed=1))
+    _, jh = jtr.run(steps=cfg["steps"], eval_every=5, seed=0)
+    w0 = {k: np.asarray(v) for k, v in jtr.init(0).global_params.items()}
+    runs = {}
+    calls = _counted_grads(monkeypatch)
+    for use_kernel in (False, True):
+        tr = TTHFTrainer(make_sim_model("nn", 784, 10, cfg["hidden"]), data,
+                         TopologyConfig(**topo), algo,
+                         batch_size=cfg["batch"], use_kernel=use_kernel,
+                         dynamics=dyn, device="cpu")
+        st = tr.init(0, w0=params_from_jax(w0, "cpu"),
+                     draws=JaxReplayDraws(0))
+        del calls[:]
+        st, h = tr.run(steps=cfg["steps"], eval_every=5, state=st)
+        assert len(calls) == (0 if use_kernel else cfg["steps"])
+        assert tr._fused_step() == use_kernel
+        runs[use_kernel] = (tr, st, h)
+    if scenario != "static":
+        assert min(h.active_devices) < cfg["devices"]
+    n_eval = runs[True][0].y.numel()
+    for tr, st, h in runs.values():
+        np.testing.assert_allclose(h.global_loss, jh.global_loss, rtol=1e-4)
+        np.testing.assert_allclose(h.global_acc, jh.global_acc,
+                                   atol=1.0 / n_eval + 1e-7)
+        for name in ("dispersion", "consensus_err"):
+            np.testing.assert_allclose(getattr(h, name), getattr(jh, name),
+                                       rtol=1e-3, atol=1e-9)
+        assert h.active_devices == jh.active_devices
+        assert tr.ledger.local_steps == jtr.ledger.local_steps
+        assert tr.ledger.d2d_msgs == jtr.ledger.d2d_msgs
+    (_, st0, h0), (_, st1, h1) = runs[False], runs[True]
+    np.testing.assert_allclose(h1.global_loss, h0.global_loss, rtol=1e-4)
+    for k in st0.params:
+        np.testing.assert_allclose(st1.params[k].numpy(),
+                                   st0.params[k].numpy(), rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_svm_keeps_autograd_under_use_kernel(monkeypatch):
+    """``svm`` has no fused step: ``use_kernel=True`` still runs one
+    autograd call an iteration, and the sim step's kernels never launch."""
+    cfg, data, topo = _setup("kernels_svm")
+    model = make_sim_model("svm", 784, 10)
+    assert model.step is None
+    tr = TTHFTrainer(model, data, TopologyConfig(**topo),
+                     TTHFConfig(**ALGOS["tthf"]), batch_size=8,
+                     use_kernel=True, device="cpu")
+    calls = _counted_grads(monkeypatch)
+    before = (sim_nn_forward.launches, sim_nn_update.launches)
+    st, h = tr.run(steps=10, eval_every=5, seed=0)
+    assert len(calls) == 10 and not tr._fused_step()
+    assert (sim_nn_forward.launches, sim_nn_update.launches) == before
+    assert np.isfinite(h.global_loss).all()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_trainer_checks_the_fused_step_when_built(use_kernel):
+    """A trainer that will take the model's fused step asks the model, when
+    it is built, whether the step runs on its device, so that a width the
+    kernels cannot take is refused before a run starts."""
+    cfg, data, topo = _setup("geo_nn")
+    seen = []
+    model = dataclasses.replace(
+        make_sim_model("nn", 784, 10, cfg["hidden"]), step_check=seen.append)
+    TTHFTrainer(model, data, TopologyConfig(**topo),
+                TTHFConfig(**ALGOS["tthf"]), batch_size=8,
+                use_kernel=use_kernel, device="cpu")
+    assert seen == ([torch.device("cpu")] if use_kernel else [])
 
 
 def test_default_draws_run_and_resume():

@@ -23,7 +23,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
      spans-only sink: the idle share of each as ``harness.trace`` reads
      it, and with the sink the layer readings of ``perfbench/spans.py``
      (``local_step_ms``, ``idle_in_snapshot``, ``replica_grads_ms``,
-     ``idle_in_gc``), the layer counters (snapshot builds and cache
+     ``idle_in_gc``), the share of the ``local_step`` spans whose
+     ``fused`` arg is set (``local_step_fused_share``, the spans that took
+     the model's fused step), the layer counters (snapshot builds and cache
      hits, collections by generation) and the window's ten longest idle
      gaps, each with the CUDA runtime call under its middle, the
      innermost program span there and the layer spans it overlaps.
@@ -194,6 +196,13 @@ def readings(tr: dict, obs) -> dict:
             out[f"{name}_ms"] = ms
             out[f"{name}_n"] = len(red.named(
                 [s for s in spans if s["cat"] == "layer"], name, lo, hi))
+    steps = red.named([s for s in spans if s["cat"] == "layer"],
+                      "local_step", lo, hi)
+    if steps:
+        # the share of the window's local steps that took the model's
+        # fused step (the span's ``fused`` arg)
+        out["local_step_fused_share"] = 100.0 * sum(
+            bool(s["args"].get("fused")) for s in steps) / len(steps)
     for name in ("netsim.snapshot", "gc"):
         out[f"idle_in_{name}"] = red.idle_share_in(spans, name, idle, lo,
                                                    hi)
