@@ -3,14 +3,20 @@
 (``TrainerConfig(fused_interval=True)``: every consensus block ends in
 ``fused_consensus_sgd``), its prefetch on and remat as by default.
 
+Whatever is the model's own comes from the plug-in of the
+configuration's ``model.kind`` (``harness.model_plugin``): the
+program's configuration, the weights from the seed and the plain
+model's loss, which ``reference/scale.py``'s interval takes.
+
 The trainer's replica streams are the benchmark's token streams and its
 draws the benchmark's. Set-up builds it and runs ``warmup_intervals``
 through ``run``, recording each interval's loss and the change of the
 global model after the first and the last. The window is one
 ``run(n)``, n the fewest intervals that cover the run's seconds at the
 last warm-up interval's time, ending on a synchronise. A traced run
-calls ``run(trace_intervals)`` and profiles its last interval's step.
-Then the trainer is freed and the reference follows the warm-up."""
+calls ``run(trace_intervals)`` into a spans-only sink and profiles its
+last interval's step. Then the trainer is freed and the reference
+follows the warm-up."""
 from __future__ import annotations
 
 import math
@@ -21,25 +27,7 @@ import torch
 from perfbench import harness, inputs
 from perfbench.drivers.common import (
     Followed, Outcome, Run, compare, free, intervals_for, log, peak_bytes)
-from perfbench.reference.mamba2 import ScaleReference
-
-
-def model_config(cfg: dict):
-    from repro_torch.configs import ModelConfig
-    m = cfg["model"]
-    mc = ModelConfig(
-        name=cfg["name"], kind=m["kind"], num_layers=m["num_layers"],
-        d_model=m["d_model"], num_heads=0, num_kv_heads=0, head_dim=0,
-        d_ff=0, vocab_size=m["vocab_size"], rope=False, norm=m["norm"],
-        tie_embeddings=m["tie_embeddings"],
-        ssm_state_dim=m["ssm_state_dim"], ssm_expand=m["ssm_expand"],
-        ssm_head_dim=m["ssm_head_dim"], ssm_num_heads=m["ssm_num_heads"],
-        ssm_chunk=m["ssm_chunk"], ssm_conv_width=m["ssm_conv_width"])
-    if mc.padded_vocab != m["vocab_rows"]:
-        raise ValueError(f"the program pads the vocabulary to "
-                         f"{mc.padded_vocab} rows, the configuration to "
-                         f"{m['vocab_rows']}")
-    return mc
+from perfbench.reference.scale import ScaleReference
 
 
 def streams(cfg: dict, traffic: dict, seed: int) -> list:
@@ -58,10 +46,11 @@ def build(cfg: dict, traffic: dict, seed: int, device):
                          consensus_every=t["consensus_every"],
                          gamma_d2d=t["gamma_d2d"], lr=t["lr"],
                          graph=t["graph"])
-    tr = ScaleTrainer(model_config(cfg), sc, TrainerConfig(
-        batch_per_replica=t["batch_per_replica"], seq_len=t["seq_len"],
-        eval_every=0, dtype=cfg["dtype"], fused_interval=True),
-        device=device)
+    tcfg = TrainerConfig(batch_per_replica=t["batch_per_replica"],
+                         seq_len=t["seq_len"], eval_every=0,
+                         dtype=cfg["dtype"], fused_interval=True)
+    tr = ScaleTrainer(harness.model_plugin(cfg).model_config(cfg), sc,
+                      tcfg, device=device)
     # the replicas read the benchmark's token streams
     tr._gens = streams(cfg, traffic, seed)
     return tr
@@ -130,7 +119,7 @@ def setup(cell, seed: int, device):
     torch.backends.cuda.matmul.allow_tf32 = cfg["tf32"]
     torch.backends.cudnn.allow_tf32 = cfg["tf32"]
     tr = build(cfg, traffic, seed, device)
-    w0 = inputs.mamba2_weights(cfg, seed, device)
+    w0 = harness.model_plugin(cfg).weights(cfg, seed, device)
     tr.init(w0=w0, draws=inputs.Draws(seed))
     if tr._spec.total != cfg["parameters"]:
         raise ValueError(f"the program's model has {tr._spec.total} "
@@ -151,8 +140,9 @@ def follow(cell, seed: int, device, prec: str = "highest",
            fault: str | None = None) -> Followed:
     """The reference through the warm-up intervals, same inputs."""
     cfg, traffic = cell.config, cell.traffic
-    ref = ScaleReference(cfg, traffic, inputs.mamba2_weights(
-        cfg, seed, device), device, prec=prec, fault=fault)
+    model = harness.model_plugin(cfg)
+    ref = ScaleReference(cfg, traffic, model.weights(cfg, seed, device),
+                         model.loss, device, prec=prec, fault=fault)
     ss = streams(cfg, traffic, seed)
     draws = inputs.Draws(seed)
     losses, first = [], None
@@ -165,6 +155,7 @@ def follow(cell, seed: int, device, prec: str = "highest",
 
 def run(r: Run) -> Outcome:
     from repro_torch.kernels.fused_consensus_sgd import fused_consensus_sgd
+    from repro_torch.obs.sink import Observability
 
     traffic = r.cell.traffic
     dev = r.device
@@ -180,9 +171,12 @@ def run(r: Run) -> Outcome:
         n = traffic["trace_intervals"]
         rec.trace_at = warm + n
         launches = fused_consensus_sgd.launches
-        tr.run(n)
+        obs = Observability()        # takes its clock anchor here
+        tr.run(n, obs=obs)
+        obs.close()
         facts.update(intervals=1, fused_consensus_sgd_launches=(
-            fused_consensus_sgd.launches - launches) // n)
+            fused_consensus_sgd.launches - launches) // n,
+            spans=obs.spans())
     else:
         e2e["setup_s"] = r.setup_s()
         n = intervals_for(r.seconds, rec.times[-1])

@@ -6,7 +6,8 @@ Set-up builds the trainer on the benchmark's data, weights and draws,
 and runs the first ``warmup_chunks`` periods: the steps the reference
 follows. The window runs the fewest further periods that cover the
 run's seconds at the last warm-up period's time and ends on a
-synchronise; a traced run profiles ``trace_chunks`` periods instead.
+synchronise; a traced run profiles ``trace_chunks`` periods instead,
+into a spans-only sink.
 Then the trainer is freed and the reference runs the same warm-up
 steps from the same inputs."""
 from __future__ import annotations
@@ -113,6 +114,7 @@ def follow(cell, seed: int, device, prec: str = "highest",
 
 def run(r: Run) -> Outcome:
     from repro_torch.kernels.consensus_mix import consensus_mix
+    from repro_torch.obs.sink import Observability
 
     cfg, traffic = r.cell.config, r.cell.traffic
     dev = r.device
@@ -128,9 +130,11 @@ def run(r: Run) -> Outcome:
         e2e["setup_s"] = r.setup_s()
         n = traffic["trace_chunks"]
         launches = consensus_mix.launches
+        obs = Observability()        # takes its clock anchor here
         (st, hists), trace = harness.trace(
-            lambda: _chunks(tr, st, n, chunk, every), dev)
-        facts.update(steps=n * chunk,
+            lambda: _chunks(tr, st, n, chunk, every, obs), dev)
+        obs.close()
+        facts.update(spans=obs.spans(), steps=n * chunk,
                      consensus_events=n * chunk // sch["consensus_every"],
                      aggregations=n * chunk // sch["tau"],
                      evals=n * chunk // every,
@@ -160,9 +164,9 @@ def run(r: Run) -> Outcome:
                    peak_bytes=peak, trace=trace)
 
 
-def _chunks(tr, st, n: int, chunk: int, every: int):
+def _chunks(tr, st, n: int, chunk: int, every: int, obs=None):
     hists = []
     for _ in range(n):
-        st, hist = tr.run(chunk, eval_every=every, state=st)
+        st, hist = tr.run(chunk, eval_every=every, state=st, obs=obs)
         hists.append(hist)
     return st, hists

@@ -1,7 +1,7 @@
-"""What every driver shares: cell lookup, the clock, the device record,
-the profiler's reduction to busy time, kernel time, the longest device
-operations and idle gaps, the correctness checks, and the guard against
-JAX in the process."""
+"""What every driver shares: cell lookup, the model plug-ins, the clock,
+the device record, the profiler's reduction to busy time, kernel time,
+the idle stretches, the longest device operations and idle gaps, the
+correctness checks, and the guard against JAX in the process."""
 from __future__ import annotations
 
 import importlib.util
@@ -14,6 +14,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
+# one plug-in a model kind: models/<kind>.py (see model_plugin)
+MODELS = HERE / "models"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
@@ -28,6 +30,18 @@ def load_module(path: Path, name: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def model_plugin(cfg: dict):
+    """The plug-in of the configuration's ``model.kind``,
+    ``models/<kind>.py``. It exports ``model_config(cfg)`` (the program's
+    ``ModelConfig``), ``weights(cfg, seed, device)`` (the parameter tree
+    from the seed), ``loss(params, tokens, labels, cfg, prec)`` (the
+    plain model's mean loss in ``prec``, for the reference) and
+    ``window_flops(cfg, traffic, intervals, facts)`` (the model
+    operations of the traced intervals)."""
+    kind = cfg["model"]["kind"]
+    return load_module(MODELS / f"{kind}.py", f"perfbench_model_{kind}")
 
 
 @dataclass
@@ -82,12 +96,17 @@ def forbidden_loaded() -> list[str]:
 @dataclass
 class Trace:
     """A traced stretch: its wall seconds, the seconds in which the card
-    ran a kernel or a copy, device seconds by kernel name, and the
-    longest idle gaps with the host operation under each."""
+    ran a kernel or a copy, device seconds by kernel name, the longest
+    idle gaps with the host operation under each, and the window's ends
+    ``lo``, ``hi`` and its idle stretches ``idle`` in nanoseconds on the
+    profiler's clock, which program spans are stamped on."""
     window_s: float
     busy_s: float
     by_name: dict
     idle_gaps: list = field(default_factory=list)
+    lo: int = 0
+    hi: int = 0
+    idle: list = field(default_factory=list)
 
     def kernel_s(self, fragment: str) -> float:
         return sum(v for k, v in self.by_name.items() if fragment in k)
@@ -114,6 +133,8 @@ def trace(fn, device) -> tuple[object, Trace]:
     from torch.autograd import (ProfilerActivity, ProfilerConfig,
                                 ProfilerState, _disable_profiler,
                                 _enable_profiler, _prepare_profiler)
+
+    from perfbench.spans import idle_stretches
     cfg = ProfilerConfig(ProfilerState.KINETO, False, False, False, False,
                          False, _ExperimentalConfig())
     acts = {ProfilerActivity.CUDA
@@ -123,10 +144,10 @@ def trace(fn, device) -> tuple[object, Trace]:
     _prepare_profiler(cfg, acts)
     _enable_profiler(cfg, acts)
     try:
-        t0 = time.perf_counter()
+        lo, t0 = time.time_ns(), time.perf_counter()
         out = fn()
         sync(device)
-        wall = time.perf_counter() - t0
+        wall, hi = time.perf_counter() - t0, time.time_ns()
     finally:
         results = _disable_profiler()
     CUDA = torch._C._autograd.DeviceType.CUDA
@@ -162,7 +183,9 @@ def trace(fn, device) -> tuple[object, Trace]:
         return best[1] if best else "(host: no CUDA call)"
     idle = [(under(a + g // 2), g * 1e-9) for g, a in gaps]
     return out, Trace(window_s=wall, busy_s=busy, by_name=by_name,
-                      idle_gaps=idle)
+                      idle_gaps=idle, lo=lo, hi=hi,
+                      idle=idle_stretches([(a, b) for a, b, _ in dev],
+                                          lo, hi))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """A Mamba-2 language model (arXiv:2405.21060; the SSD layer, one B/C
-group shared by the heads) and the TT-HF interval over its replicas, in
-plain PyTorch.
+group shared by the heads) in plain PyTorch: the loss that the ``ssm``
+model plug-in hands to the TT-HF interval of ``reference/scale.py``.
 
 The model is the one the configuration states: tied embeddings over the
 padded vocabulary rows; per layer ``x + out(ssd(norm(x)))`` with an
@@ -12,22 +12,15 @@ a SiLU on each of x, B and C; ``dt = softplus(dt + dt_bias)``, ``A =
 departure from the published block that the configuration records);
 and the output projection. The scan is the chunked SSD algorithm of the
 paper's minimal listing (segment sums within a chunk, states passed
-between chunks), written again here.
-
-The interval: ``tau`` local SGD steps of every replica on its own
-batches, after every ``consensus_every`` steps the mix ``w <- W w``
-with ``W = V^Gamma`` within each cluster, then the cluster-sampled
-global model (eq. 7) on every replica."""
+between chunks), written again here."""
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from perfbench.inputs import ssm_dims, tree_items
-from perfbench.reference import topology
-from perfbench.reference.common import change_norms, mm, precision
+from perfbench.inputs import ssm_dims
+from perfbench.reference.common import mm
 
 
 def rmsnorm(x, scale, eps=1e-6):
@@ -112,98 +105,3 @@ def loss(params: dict, tokens, labels, m: dict, prec: str):
     logits = mm(x, params["embed"].T, prec)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            labels.reshape(-1).long())
-
-
-def _tree(items):
-    out: dict = {}
-    for path, v in items:
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-    return out
-
-
-class ScaleReference:
-    """TT-HF intervals over ``replicas`` copies of the model."""
-
-    def __init__(self, cfg: dict, traffic: dict, w0: dict, device,
-                 prec: str = "highest", fault: str | None = None):
-        self.m = cfg["model"]
-        self.tr = traffic
-        R, s = traffic["replicas"], traffic["cluster_size"]
-        self.N, self.s = R // s, s
-        adj, V = topology.clusters(self.N, s, traffic["graph"])
-        self.edges = [int(e) for e in adj.sum((1, 2)) // 2]
-        W = np.stack([np.linalg.matrix_power(v, traffic["gamma_d2d"])
-                      for v in V])
-        self.W = torch.as_tensor(W, dtype=torch.float32, device=device)
-        self.prec = prec
-        self.fault = fault          # the control's planted faults
-        self.paths = [p for p, _ in tree_items(w0)]
-        self.w0 = [v for _, v in tree_items(w0)]
-        self.reps = [[v.clone() for v in self.w0] for _ in range(R)]
-        self.ledger = {"uplinks": 0, "d2d_msgs": 0, "d2d_rounds": 0,
-                       "local_steps": 0}
-        self.device = device
-
-    def _grads(self, leaves, batch):
-        ps = [v.detach().requires_grad_(True) for v in leaves]
-        rows = len(batch["tokens"])
-        if self.fault == "half_batch":
-            rows //= 2
-        tokens = torch.as_tensor(batch["tokens"][:rows], device=self.device)
-        labels = torch.as_tensor(batch["labels"][:rows], device=self.device)
-        ls = loss(_tree(zip(self.paths, ps)), tokens, labels, self.m,
-                  self.prec)
-        return ls.detach(), torch.autograd.grad(ls, ps)
-
-    @torch.no_grad()
-    def _mix(self):
-        for j in range(len(self.w0)):
-            z = torch.stack([r[j] for r in self.reps])
-            shape = z.shape
-            z = mm(self.W, z.reshape(self.N, self.s, -1), self.prec)
-            for r, row in zip(self.reps, z.reshape(shape)):
-                r[j] = row
-
-    def interval(self, streams, draws) -> float:
-        """One interval; ``streams`` the replicas' batch iterators. ->
-        the mean loss over its steps and replicas."""
-        tr = self.tr
-        R = len(self.reps)
-        losses = []
-        with precision(self.prec):
-            for t in range(tr["tau"]):
-                step = []
-                for r in range(R):
-                    ls, gs = self._grads(self.reps[r], next(streams[r]))
-                    with torch.no_grad():
-                        for w, g in zip(self.reps[r], gs):
-                            w.sub_(g * tr["lr"])
-                    step.append(ls)
-                losses.append(torch.stack(step).mean())
-                self.ledger["local_steps"] += R
-                if (t + 1) % tr["consensus_every"] == 0:
-                    if self.fault != "no_consensus":
-                        self._mix()
-                    G = tr["gamma_d2d"]
-                    self.ledger["d2d_rounds"] += G * self.N
-                    self.ledger["d2d_msgs"] += sum(G * 2 * e
-                                                   for e in self.edges)
-            picks = draws.picks(self.N, self.s, 1).long()
-            with torch.no_grad():
-                chosen = [self.reps[c * self.s + int(picks[c])]
-                          for c in range(self.N)]
-                glob = [sum(rep[j] for rep in chosen) / self.N
-                        for j in range(len(self.w0))]
-                self.reps = [[g.clone() for g in glob] for _ in range(R)]
-            self.ledger["uplinks"] += self.N
-        return float(torch.stack(losses).mean())
-
-    def change_norms(self) -> dict:
-        name = ".".join
-        return change_norms({name(p): v for p, v in
-                             zip(self.paths, self.reps[0])},
-                            {name(p): v for p, v in
-                             zip(self.paths, self.w0)})

@@ -6,8 +6,9 @@ A span record is what ``repro_torch.obs.Observability.spans()`` returns:
 ``dev_start_ns``/``dev_end_ns``, all in nanoseconds on the clock
 ``torch.profiler`` stamps its events with. A window is ``(lo, hi)`` on
 that clock; idle stretches are the parts of it in which the card ran no
-kernel and no copy. The harness does not hand spans to the readers yet
-(``PERF.md`` §7): ``tools/trace_layers.py`` reads these on the card.
+kernel and no copy. A traced run's drivers hand the spans to the
+per-layer readers as ``facts["spans"]``, and ``harness.trace`` the
+window as ``Trace.lo``, ``Trace.hi`` and ``Trace.idle``.
 """
 from __future__ import annotations
 

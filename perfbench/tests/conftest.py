@@ -33,7 +33,8 @@ def tiny_sim(traffic: str, limits: str) -> harness.Cell:
         chips=1, end_to_end=[], per_layer=[])
 
 
-def tiny_train() -> harness.Cell:
+def tiny_train(traffic: str = "tthf.r4.t2.b16x1024",
+               limits: str = "train.mamba2-370m.tthf") -> harness.Cell:
     cfg = harness.load_json(harness.HERE / "configs/mamba2-370m.json")
     cfg["model"].update(num_layers=2, d_model=64, vocab_size=500,
                         vocab_rows=512, ssm_state_dim=16, ssm_head_dim=32,
@@ -42,13 +43,11 @@ def tiny_train() -> harness.Cell:
     cfg["parameters"] = 512 * d + d + L * (
         d + d * (2 * d_in + 2 * S + H) + d_in * d + K * (d_in + 2 * S)
         + 3 * H)
-    traffic = harness.load_json(harness.HERE
-                                / "traffic/tthf.r4.t2.b16x1024.json")
+    traffic = harness.load_json(harness.HERE / f"traffic/{traffic}.json")
     traffic.update(batch_per_replica=2, seq_len=64, trace_intervals=2)
     return harness.Cell(
         name="tiny", config=cfg, traffic=traffic,
-        limits=harness.load_json(harness.HERE
-                                 / "limits/train.mamba2-370m.tthf.json"),
+        limits=harness.load_json(harness.HERE / f"limits/{limits}.json"),
         chips=1, end_to_end=[], per_layer=[])
 
 
@@ -65,6 +64,13 @@ def sim_churn():
 @pytest.fixture
 def train():
     return tiny_train()
+
+
+@pytest.fixture
+def sync():
+    """The traffic and limits kept for the cell ``train.mamba2-370m.sync``
+    (not in ``BENCHMARK.json`` yet): a consensus after every step."""
+    return tiny_train("tthf.r4.t2.c1.g4.b4x256", "train.mamba2-370m.sync")
 
 
 @pytest.fixture

@@ -21,10 +21,11 @@ from perfbench.harness import passed
 from conftest import CPU
 
 
-@pytest.mark.parametrize("which", ["sim_static", "sim_churn", "train"])
+@pytest.mark.parametrize("which", ["sim_static", "sim_churn", "train",
+                                   "sync"])
 def test_control_fails(which, request):
     cell = request.getfixturevalue(which)
-    drv = scale if which == "train" else sim
+    drv = sim if which.startswith("sim") else scale
     seed = 11
     ref = drv.follow(cell, seed, CPU)
     chk = compare(drv.follow(cell, seed, CPU, prec="tf32"), ref,
@@ -79,7 +80,8 @@ def _no_exchange_train(mp):
 
 
 FAULTS = {"sim_static": [_unchanged_sim, _half_sim, _no_exchange_sim],
-          "train": [_unchanged_train, _half_train, _no_exchange_train]}
+          "train": [_unchanged_train, _half_train, _no_exchange_train],
+          "sync": [_unchanged_train, _half_train, _no_exchange_train]}
 
 
 @pytest.mark.parametrize("which,fault", [
@@ -88,7 +90,7 @@ FAULTS = {"sim_static": [_unchanged_sim, _half_sim, _no_exchange_sim],
 def test_fault_is_caught(which, fault, request, monkeypatch):
     cell = request.getfixturevalue(which)
     fault(monkeypatch)
-    drv = scale if which == "train" else sim
+    drv = sim if which.startswith("sim") else scale
     out = drv.run(Run(cell=cell, seed=5, seconds=0.1, trace=False,
                       device=CPU, t_start=time.perf_counter()))
     assert not passed(out.checks), out.checks

@@ -26,8 +26,18 @@ def test_top_level_keys():
 def test_workload_resolves(w):
     cell = harness.Cell.load(w["name"], BENCH)
     assert cell.chips == 1
-    assert cell.config["kind"] in ("sim", "scale")
-    assert (harness.HERE / "drivers" / f"{cell.config['kind']}.py").exists()
+    # the contract of a driver and, for the scale driver, of the model
+    # plug-in of the configuration's model kind
+    kind = cell.config["kind"]
+    driver = harness.load_module(harness.HERE / "drivers" / f"{kind}.py",
+                                 f"perfbench_driver_{kind}")
+    for name in ("run", "setup", "follow"):
+        assert callable(getattr(driver, name, None)), (kind, name)
+    if kind == "scale":
+        model = harness.model_plugin(cell.config)
+        for name in ("model_config", "weights", "loss", "window_flops"):
+            assert callable(getattr(model, name, None)), (
+                cell.config["model"]["kind"], name)
     assert {"loss_gap", "ledger_mismatch"} <= set(cell.limits) <= {
         "loss_gap", "grad_gap", "change_gap", "grad_gap_median",
         "change_gap_median", "ledger_mismatch"}

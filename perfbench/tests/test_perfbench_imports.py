@@ -46,7 +46,7 @@ import torch
 from perfbench import harness
 from perfbench.drivers.common import Run
 from conftest import tiny_sim
-for sub in ("drivers", "metrics", "counts", "reference"):
+for sub in ("drivers", "metrics", "counts", "reference", "models"):
     for p in (harness.HERE / sub).glob("*.py"):
         harness.load_module(p, "m_" + sub + "_" + p.stem.replace(".", "_"))
 import perfbench.calibrate, perfbench.run

@@ -32,8 +32,10 @@ def test_churn_darkens_devices(sim_churn):
     assert got.ledger["local_steps"] < 20 * steps
 
 
-def test_train_agrees(train):
-    _, _, got = scale.setup(train, SEEDS[1], CPU)
-    chk = compare(got, scale.follow(train, SEEDS[1], CPU), train.limits)
+@pytest.mark.parametrize("which", ["train", "sync"])
+def test_train_agrees(which, request):
+    cell = request.getfixturevalue(which)
+    _, _, got = scale.setup(cell, SEEDS[1], CPU)
+    chk = compare(got, scale.follow(cell, SEEDS[1], CPU), cell.limits)
     assert passed(chk), chk
-    assert got.ledger["uplinks"] == 2 * train.traffic["warmup_intervals"]
+    assert got.ledger["uplinks"] == 2 * cell.traffic["warmup_intervals"]
